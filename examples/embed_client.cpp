@@ -1,7 +1,7 @@
-// Embedding annonet-tpu inference in a C++ application.
+// Embedding annonet-jax inference in a C++ application.
 //
 // The reference's annonet_infer.h:15-17 invites embedding the inference
-// core in other applications; the TPU-native equivalent keeps the
+// core in other applications; the accelerator equivalent keeps the
 // compiled XLA programs warm in an annonet_serve sidecar and embeds this
 // thin client (native/annonet_client.h). Start a server first, e.g.
 //

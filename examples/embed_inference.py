@@ -1,4 +1,4 @@
-"""Embed annonet-tpu inference in your own application.
+"""Embed annonet-jax inference in your own application.
 
 The reference's annonet_infer.{h,cpp} is written "so that it can be
 included in other applications as well" (annonet_infer.h:15-17); this is
@@ -15,11 +15,11 @@ sys.path.insert(0, __file__.rsplit("/", 2)[0])  # repo root, if not installed
 
 import numpy as np
 
-from annonet_tpu import serialization
-from annonet_tpu.classes import parse_anno_classes
-from annonet_tpu.data.codec import index_label_image_to_rgba_label_image
-from annonet_tpu.data.sample import load_image, save_png_rgba
-from annonet_tpu.infer.core import TiledInferer, annonet_infer
+from annonet_jax import serialization
+from annonet_jax.classes import parse_anno_classes
+from annonet_jax.data.codec import index_label_image_to_rgba_label_image
+from annonet_jax.data.sample import load_image, save_png_rgba
+from annonet_jax.infer.core import TiledInferer, annonet_infer
 
 
 def main() -> int:
@@ -37,13 +37,13 @@ def main() -> int:
     anno_classes = parse_anno_classes(classes_json)
 
     # one inferer serves any number of images; compiled programs are
-    # cached per image-size bucket. quantize="int8" opts into the 2x-MXU
+    # cached per image-size bucket. quantize="int8" opts into the int8
     # quantized conv stack (calibrated on the first image you pass).
     inferer = TiledInferer(params, config, quantize="int8")
 
     image = load_image(image_path, grayscale=config.grayscale)
     if downscale != 1.0:
-        from annonet_tpu.data.sample import resize_image_bilinear
+        from annonet_jax.data.sample import resize_image_bilinear
 
         # same rounding + min-1 guard as read_sample (data/sample.py)
         h = max(1, int(round(image.shape[0] / downscale)))

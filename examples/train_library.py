@@ -17,20 +17,20 @@ def main() -> int:
         return 1
     dataset_dir, out_path = sys.argv[1], sys.argv[2]
 
-    from annonet_tpu import serialization
-    from annonet_tpu.classes import parse_anno_classes
-    from annonet_tpu.data.crop import CropOptions
-    from annonet_tpu.data.dataset import (
+    from annonet_jax import serialization
+    from annonet_jax.classes import parse_anno_classes
+    from annonet_jax.data.crop import CropOptions
+    from annonet_jax.data.dataset import (
         find_image_files,
         read_anno_classes_file,
     )
-    from annonet_tpu.data.pipeline import CropPipeline
-    from annonet_tpu.models.segnet import (
+    from annonet_jax.data.pipeline import CropPipeline
+    from annonet_jax.models.segnet import (
         SegNetConfig,
         recommended_input_dimension,
         required_input_dimension,
     )
-    from annonet_tpu.train.trainer import Trainer, TrainerConfig
+    from annonet_jax.train.trainer import Trainer, TrainerConfig
 
     files = find_image_files(dataset_dir, require_ground_truth=True)
     classes_json = read_anno_classes_file(dataset_dir)

@@ -2,7 +2,7 @@
  *
  * The reference's annonet_infer.h:15-17 is explicitly an embedding
  * contract: "this functionality [...] can be included in other
- * applications". In this framework the model executes on TPU behind a
+ * applications". In this framework the model executes on the accelerator behind a
  * long-lived annonet_serve process (compiled XLA programs stay warm);
  * the native embedding path for C/C++ applications is this client — a
  * dependency-free HTTP/1.1 client over POSIX sockets that ships pixels

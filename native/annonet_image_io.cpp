@@ -3,7 +3,7 @@
 // The native replacement for the reference's dlib image I/O
 // (dlib::load_image at /root/reference/annonet.cpp:150, save_png at
 // annonet_infer_main.cpp:415, which wrap the same libpng/libjpeg). Used by
-// the loader/writer threads with the GIL released; annonet_tpu/data/sample.py
+// the loader/writer threads with the GIL released; annonet_jax/data/sample.py
 // keeps a PIL fallback behind the same interface.
 //
 // Channel conventions:
@@ -13,7 +13,7 @@
 //   want_channels = 3  -> RGB
 //   want_channels = 4  -> RGBA (missing alpha filled with 255)
 //
-// Build: linked with -lpng -ljpeg (see native/Makefile / annonet_tpu/native.py).
+// Build: linked with -lpng -ljpeg (see native/Makefile / annonet_jax/native.py).
 
 #include <csetjmp>
 #include <cstdint>

@@ -1,6 +1,6 @@
-// annonet_tpu native host runtime (C++17, plain C ABI for ctypes).
+// annonet_jax native host runtime (C++17, plain C ABI for ctypes).
 //
-// TPU-native replacement for the host-side native code paths of the
+// Accelerator-era replacement for the host-side native code paths of the
 // reference (which got them from dlib): connected-component labeling
 // (dlib::label_connected_blobs call sites: /root/reference/
 // annonet_train_main.cpp:450, annonet_infer.cpp:217,
@@ -10,7 +10,7 @@
 // module keeps the *host* side of the pipeline native too.
 //
 // Build: g++ -O3 -march=native -shared -fPIC -o libannonet_native.so
-//        annonet_native.cpp   (driven by annonet_tpu/native.py)
+//        annonet_native.cpp   (driven by annonet_jax/native.py)
 
 #include <cmath>
 #include <cstdint>

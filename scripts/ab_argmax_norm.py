@@ -4,15 +4,11 @@ The no-detection label map only needs argmax_k(acc*inv_wsum + g), which
 equals argmax_k(acc + g*wsum); wsum factorizes over grid plans
 (tiling.weight_sum_factors), so the gain term becomes two 1-D broadcasts
 fused into the argmax and the full-canvas inv-wsum broadcast/convert/
-multiply passes (~0.8 ms/image at 4096² per scripts/analyze_int8_hlo.py)
-disappear. Label disagreements expected ~0 (only near-tie bf16 rounding
-can flip; measured 161/16.8M px).
+multiply passes disappear. Label disagreements are expected near 0 (only
+near-tie bf16 rounding can flip). The folded form is the default;
+ANNONET_NO_ARGMAX_FOLD=1 selects the normalize path.
 
-Measured (round 3, seventh session): folded-gain wins, 732->769 and
-741->766 Mpx/s — SHIPPED as the default; ANNONET_TPU_NO_ARGMAX_FOLD=1
-re-measures the old normalize path.
-
-Run alone on the TPU.
+Run alone on the GPU (one process per card).
 """
 
 import os
@@ -21,7 +17,7 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from annonet_tpu.cli.common import apply_platform_env
+from annonet_jax.cli.common import apply_platform_env
 
 apply_platform_env()
 
@@ -30,9 +26,9 @@ import jax.numpy as jnp
 import numpy as np
 
 from ab_util import run_interleaved_ab
-from annonet_tpu.infer.core import TiledInferer
-from annonet_tpu.infer.tiling import TilingParameters
-from annonet_tpu.models.segnet import (
+from annonet_jax.infer.core import TiledInferer
+from annonet_jax.infer.tiling import TilingParameters
+from annonet_jax.models.segnet import (
     SegNetConfig,
     fold_batchnorm,
     init_state,
@@ -40,7 +36,7 @@ from annonet_tpu.models.segnet import (
 )
 
 SIZE = int(os.environ.get("AB_SIZE", "4096"))
-TILE = int(os.environ.get("AB_TILE", "1088"))
+TILE = int(os.environ.get("AB_TILE", "1024"))
 
 
 def main() -> None:
@@ -54,13 +50,13 @@ def main() -> None:
     image = jnp.asarray(
         rng.integers(0, 256, size=(SIZE, SIZE, 3), dtype=np.uint8)
     )
-    float(jnp.max(image).astype(jnp.int32))
+    jax.block_until_ready(image)
 
     run_interleaved_ab(
         lambda: TiledInferer(rp, config, tiling, quantize="int8"),
         [
-            ("normalize", {"ANNONET_TPU_NO_ARGMAX_FOLD": "1"}),
-            ("folded-gain", {"ANNONET_TPU_NO_ARGMAX_FOLD": None}),
+            ("normalize", {"ANNONET_NO_ARGMAX_FOLD": "1"}),
+            ("folded-gain", {"ANNONET_NO_ARGMAX_FOLD": None}),
         ],
         image,
     )

@@ -1,19 +1,16 @@
 """A/B: flat DUS-chain vs per-row-strip blend accumulate (int8 path).
 
 The flat chain serializes tile_count dynamic-update-slices into one
-zero-initialized canvas (~1.3 ms/image at 4096² per
-scripts/analyze_int8_hlo.py). Strips build one accumulator per tile ROW
-(independent chains of depth count_x) and join them with ONE
-sublane-aligned concat whose only arithmetic is the strip-overlap bands.
+zero-initialized canvas. Strips build one accumulator per tile ROW
+(independent chains of depth count_x) and join them with ONE concat whose
+only arithmetic is the strip-overlap bands.
 
 NOT bit-identical: the strip pre-sums regroup the float adds in
-y-overlap bands ((a1+a2)+(b1+b2) vs (((a1+a2)+b1)+b2)) — measured
-26/16.8M px flipped at 4096² bf16. Measured rate (round 3, seventh
-session): a WASH, 774.9 strips vs 778.2 flat — XLA already overlaps the
-DUS chain with the conv stream. The flat chain ships;
-ANNONET_TPU_BLEND_STRIPS=1 re-measures (docs/DESIGN.md §26).
+y-overlap bands ((a1+a2)+(b1+b2) vs (((a1+a2)+b1)+b2)). The flat chain
+is the default; ANNONET_BLEND_STRIPS=1 selects strips (docs/DESIGN.md
+§26).
 
-Run alone on the TPU.
+Run alone on the GPU (one process per card).
 """
 
 import os
@@ -22,7 +19,7 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from annonet_tpu.cli.common import apply_platform_env
+from annonet_jax.cli.common import apply_platform_env
 
 apply_platform_env()
 
@@ -31,9 +28,9 @@ import jax.numpy as jnp
 import numpy as np
 
 from ab_util import run_interleaved_ab
-from annonet_tpu.infer.core import TiledInferer
-from annonet_tpu.infer.tiling import TilingParameters
-from annonet_tpu.models.segnet import (
+from annonet_jax.infer.core import TiledInferer
+from annonet_jax.infer.tiling import TilingParameters
+from annonet_jax.models.segnet import (
     SegNetConfig,
     fold_batchnorm,
     init_state,
@@ -41,7 +38,7 @@ from annonet_tpu.models.segnet import (
 )
 
 SIZE = int(os.environ.get("AB_SIZE", "4096"))
-TILE = int(os.environ.get("AB_TILE", "1088"))
+TILE = int(os.environ.get("AB_TILE", "1024"))
 
 
 def main() -> None:
@@ -55,13 +52,13 @@ def main() -> None:
     image = jnp.asarray(
         rng.integers(0, 256, size=(SIZE, SIZE, 3), dtype=np.uint8)
     )
-    float(jnp.max(image).astype(jnp.int32))
+    jax.block_until_ready(image)
 
     run_interleaved_ab(
         lambda: TiledInferer(rp, config, tiling, quantize="int8"),
         [
-            ("flat-chain", {"ANNONET_TPU_BLEND_STRIPS": "0"}),
-            ("strips", {"ANNONET_TPU_BLEND_STRIPS": "1"}),
+            ("flat-chain", {"ANNONET_BLEND_STRIPS": "0"}),
+            ("strips", {"ANNONET_BLEND_STRIPS": "1"}),
         ],
         image,
     )

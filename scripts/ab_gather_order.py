@@ -1,18 +1,12 @@
 """A/B: tile-gather axis order (leading vs sublane) on the composed
 int8 inference program.
 
-The leading-axis stack costs a ~1.9 ms/image relayout at 4096²
-(copy.140 in scripts/analyze_int8_hlo.py): the int8 conv emitters want
-the tile batch second-minor ("batch in sublanes"). The "sublane" order
-stacks with the tile axis second-minor + a transpose XLA could keep as
-a relabel.
+The "sublane" order stacks the tiles with the tile axis second-minor and
+transposes back, which XLA may keep as a relabel instead of a relayout
+copy of the tile batch. The leading order is the default;
+ANNONET_GATHER_ORDER=sublane selects the other (docs/DESIGN.md §26).
 
-Measured (round 3, seventh session): NEGATIVE — 732 sublane vs 743
-leading; XLA does not relabel the transpose, it moves the same relayout
-into the stack. The leading order ships; ANNONET_TPU_GATHER_ORDER=
-sublane re-measures on future toolchains (docs/DESIGN.md §26).
-
-Run alone on the TPU.
+Run alone on the GPU (one process per card).
 """
 
 import os
@@ -21,7 +15,7 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from annonet_tpu.cli.common import apply_platform_env
+from annonet_jax.cli.common import apply_platform_env
 
 apply_platform_env()
 
@@ -30,9 +24,9 @@ import jax.numpy as jnp
 import numpy as np
 
 from ab_util import run_interleaved_ab
-from annonet_tpu.infer.core import TiledInferer
-from annonet_tpu.infer.tiling import TilingParameters
-from annonet_tpu.models.segnet import (
+from annonet_jax.infer.core import TiledInferer
+from annonet_jax.infer.tiling import TilingParameters
+from annonet_jax.models.segnet import (
     SegNetConfig,
     fold_batchnorm,
     init_state,
@@ -40,7 +34,7 @@ from annonet_tpu.models.segnet import (
 )
 
 SIZE = int(os.environ.get("AB_SIZE", "4096"))
-TILE = int(os.environ.get("AB_TILE", "1088"))
+TILE = int(os.environ.get("AB_TILE", "1024"))
 MODE = os.environ.get("AB_MODE", "int8")
 
 
@@ -56,13 +50,13 @@ def main() -> None:
     image = jnp.asarray(
         rng.integers(0, 256, size=(SIZE, SIZE, 3), dtype=np.uint8)
     )
-    float(jnp.max(image).astype(jnp.int32))
+    jax.block_until_ready(image)
 
     run_interleaved_ab(
         lambda: TiledInferer(rp, config, tiling, quantize=quant),
         [
-            ("leading", {"ANNONET_TPU_GATHER_ORDER": None}),
-            ("sublane", {"ANNONET_TPU_GATHER_ORDER": "sublane"}),
+            ("leading", {"ANNONET_GATHER_ORDER": None}),
+            ("sublane", {"ANNONET_GATHER_ORDER": "sublane"}),
         ],
         image,
     )

@@ -1,14 +1,13 @@
 """A/B: the stem conv as a y-tap-concat (1,3) conv vs the plain 3x3.
 
-The stem is the one MXU-starved op left in the int8 program (docs/DESIGN.md
-§26: 32 folded input lanes -> 91 TOP/s, 1.86 ms at 4096² vs 0.43 ideal).
-ANNONET_TPU_STEM_YCAT=1 rewrites it (quantized_runtime.ycat_stem_qspec):
-concatenate the y-1/y/y+1 rows on the channel axis (96 of 128 lanes) and
-run a (1,3) conv — identical integer math (bit-exact, tested), trading an
-extra HBM materialization of the 3x-wide stem input for 3x the MXU
-utilization. Label disagreements must be 0.
+The stem has the narrowest contraction in the int8 program (docs/DESIGN.md
+§26: fold0 * 4 folded input channels). ANNONET_STEM_YCAT=1 rewrites it
+(quantized_runtime.ycat_stem_qspec): concatenate the y-1/y/y+1 rows on the
+channel axis and run a (1,3) conv — identical integer math (bit-exact,
+tested), trading an extra device-memory pass over the 3x-wide stem input
+for a 3x wider contraction. Label disagreements must be 0.
 
-Run alone on the TPU.
+Run alone on the GPU (one process per card).
 """
 
 import os
@@ -17,7 +16,7 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from annonet_tpu.cli.common import apply_platform_env
+from annonet_jax.cli.common import apply_platform_env
 
 apply_platform_env()
 
@@ -26,9 +25,9 @@ import jax.numpy as jnp
 import numpy as np
 
 from ab_util import run_interleaved_ab
-from annonet_tpu.infer.core import TiledInferer
-from annonet_tpu.infer.tiling import TilingParameters
-from annonet_tpu.models.segnet import (
+from annonet_jax.infer.core import TiledInferer
+from annonet_jax.infer.tiling import TilingParameters
+from annonet_jax.models.segnet import (
     SegNetConfig,
     fold_batchnorm,
     init_state,
@@ -36,7 +35,7 @@ from annonet_tpu.models.segnet import (
 )
 
 SIZE = int(os.environ.get("AB_SIZE", "4096"))
-TILE = int(os.environ.get("AB_TILE", "1088"))
+TILE = int(os.environ.get("AB_TILE", "1024"))
 
 
 def main() -> None:
@@ -50,13 +49,13 @@ def main() -> None:
     image = jnp.asarray(
         rng.integers(0, 256, size=(SIZE, SIZE, 3), dtype=np.uint8)
     )
-    float(jnp.max(image).astype(jnp.int32))
+    jax.block_until_ready(image)
 
     run_interleaved_ab(
         lambda: TiledInferer(rp, config, tiling, quantize="int8"),
         [
-            ("plain-3x3", {"ANNONET_TPU_STEM_YCAT": None}),
-            ("ycat-1x3", {"ANNONET_TPU_STEM_YCAT": "1"}),
+            ("plain-3x3", {"ANNONET_STEM_YCAT": None}),
+            ("ycat-1x3", {"ANNONET_STEM_YCAT": "1"}),
         ],
         image,
     )

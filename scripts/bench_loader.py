@@ -1,10 +1,9 @@
-"""Host data-pipeline throughput: can the loaders feed the TPU train step?
+"""Host data-pipeline throughput: can the loaders feed the train step?
 
-The device consumes ~6200 crops/s (192^2, batch 128, v5e). With batched
-native minibatch assembly this loader sustains ~6.5k crops/s on the 1-core
-dev host (noisy box: runs vary 5-10k). This measures what
-CropPipeline produces on this host (synthetic dataset, real PNG decode via
-the native module, real crop extraction) at several thread counts.
+The loader must outrun the device step's consumption for the CLI loop to
+be device-bound. This measures what CropPipeline produces on this host
+(synthetic dataset, real PNG decode, real crop extraction) at several
+thread counts.
 
 Run: python scripts/bench_loader.py [--dim 192] [--images 8] [--size 2048]
 """
@@ -35,18 +34,16 @@ def main():
 
     import numpy as np
 
-    from annonet_tpu.classes import default_anno_classes, anno_classes_to_json
-    from annonet_tpu.data.crop import CropOptions
-    from annonet_tpu.data.dataset import find_image_files
-    from annonet_tpu.data.pipeline import CropPipeline
-    from annonet_tpu.data.sample import save_png_rgba
+    from annonet_jax.classes import default_anno_classes, anno_classes_to_json
+    from annonet_jax.data.crop import CropOptions
+    from annonet_jax.data.dataset import find_image_files
+    from annonet_jax.data.pipeline import CropPipeline
+    from annonet_jax.data.sample import save_png
 
     anno_classes = default_anno_classes()
     rng = np.random.default_rng(0)
 
     with tempfile.TemporaryDirectory() as root:
-        from PIL import Image
-
         for i in range(args.images):
             img = rng.integers(
                 0, 256, size=(args.size, args.size, 3), dtype=np.uint8
@@ -54,8 +51,8 @@ def main():
             mask = np.zeros((args.size, args.size, 4), dtype=np.uint8)
             mask[...] = anno_classes[0].rgba_label
             mask[:: 7, :: 5] = anno_classes[1].rgba_label
-            Image.fromarray(img).save(os.path.join(root, f"im{i}.png"))
-            save_png_rgba(os.path.join(root, f"im{i}.png_mask.png"), mask)
+            save_png(os.path.join(root, f"im{i}.png"), img)
+            save_png(os.path.join(root, f"im{i}.png_mask.png"), mask)
 
         files = find_image_files(root, True, verbose=False)
         opts = CropOptions(dim=args.dim)

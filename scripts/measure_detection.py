@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Measure (and optionally pin) the detection-graded benchmark floors.
 
-The benchmark (annonet_tpu/data/synthetic.py) is the severe regime the
+The benchmark (annonet_jax/data/synthetic.py) is the severe regime the
 reference's detection machinery exists for: ~1000:1 class imbalance,
 defects smaller than the receptive field, defects straddling tile
 boundaries, oversize mislabeled smears in the TRAIN split. This script
@@ -18,7 +18,7 @@ metrics; `--pin` writes conservative floors into PARITY_TARGETS.json
 A control arm (--no-filter) trains WITHOUT the region filter to record
 the smear damage the filter prevents.
 
-Usage: ANNONET_TPU_PLATFORM=cpu python scripts/measure_detection.py
+Usage: ANNONET_PLATFORM=cpu python scripts/measure_detection.py
            [--seeds 0 1 2] [--steps 150] [--pin] [--no-filter]
 """
 
@@ -31,7 +31,7 @@ import sys
 import tempfile
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
-os.environ.setdefault("ANNONET_TPU_PLATFORM", "cpu")
+os.environ.setdefault("ANNONET_PLATFORM", "cpu")
 
 import numpy as np  # noqa: E402
 
@@ -39,8 +39,8 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 
 # ---- the benchmark configuration (mirrored by the test; keep in sync) ----
 #
-# THE RECOMMENDED DETECTION-REGIME CONFIGURATION (round-5 sweep,
-# docs/ROUND5.md has the full lever table). Three levers moved the
+# THE RECOMMENDED DETECTION-REGIME CONFIGURATION (from a sweep of the
+# training levers). Three levers moved the
 # worst-seed background region recall 0.10 -> >=0.5 (i.e. false-positive
 # blobs ~103 -> <=10 over the 6 eval images), each necessary:
 #
@@ -110,24 +110,24 @@ def run_benchmark(seed, steps=None, use_filter=True, verbose=True,
 
     jax.config.update("jax_platforms", "cpu")
 
-    from annonet_tpu.classes import parse_anno_classes
-    from annonet_tpu.data.crop import CropOptions
-    from annonet_tpu.data.dataset import find_image_files
-    from annonet_tpu.data.pipeline import CropPipeline, RegionFilterOptions
-    from annonet_tpu.data.sample import read_sample
-    from annonet_tpu.data.synthetic import write_detection_dataset
-    from annonet_tpu.infer.core import TiledInferer, annonet_infer
-    from annonet_tpu.infer.evaluation import (
+    from annonet_jax.classes import parse_anno_classes
+    from annonet_jax.data.crop import CropOptions
+    from annonet_jax.data.dataset import find_image_files
+    from annonet_jax.data.pipeline import CropPipeline, RegionFilterOptions
+    from annonet_jax.data.sample import read_sample
+    from annonet_jax.data.synthetic import write_detection_dataset
+    from annonet_jax.infer.core import TiledInferer, annonet_infer
+    from annonet_jax.infer.evaluation import (
         new_confusion_matrix,
         update_confusion_matrix_per_pixel,
         update_confusion_matrix_per_region,
     )
-    from annonet_tpu.infer.tiling import TilingParameters
-    from annonet_tpu.models.segnet import (
+    from annonet_jax.infer.tiling import TilingParameters
+    from annonet_jax.models.segnet import (
         SegNetConfig,
         required_input_dimension,
     )
-    from annonet_tpu.train.trainer import Trainer, TrainerConfig
+    from annonet_jax.train.trainer import Trainer, TrainerConfig
 
     b = {**BENCH, **overrides}
     with tempfile.TemporaryDirectory() as td:
@@ -339,7 +339,7 @@ def main():
         )
         targets["detection_benchmark"] = {
             "config": (
-                f"annonet_tpu/data/synthetic.py detection set: "
+                f"annonet_jax/data/synthetic.py detection set: "
                 f"{BENCH['train_images']} train images "
                 f"({BENCH['oversize_images']} with oversize smears, "
                 f"region filter by_area={BENCH['region_filter_area']}) + "

@@ -1,12 +1,10 @@
 """Measure and pin accuracy targets for the synthetic parity config.
 
-BASELINE.md's first action was to run the reference CPU build on the
-synthetic config to establish accuracy-parity targets. That build is
-IMPOSSIBLE in this environment: every reference dependency is an empty git
-submodule (dlib, dlib-dnn-pimpl-wrapper, tiling, cxxopts, rapidjson, ... —
-see /root/reference/.gitmodules) and the sandbox has no network egress to
-fetch them. Per VERDICT.md item 7, this script instead PINS the rebuild's
-own measured accuracy on the synthetic config (BASELINE.json configs[0]:
+Accuracy-parity targets would come from running the reference build on the
+synthetic config. That build cannot be made from the reference snapshot:
+every reference dependency is an empty git submodule (dlib,
+dlib-dnn-pimpl-wrapper, tiling, cxxopts, rapidjson, ...). So this script
+PINS the rebuild's own measured accuracy on the synthetic config (a
 2-class train -> infer round trip) as the standing regression target in
 PARITY_TARGETS.json, which tests/test_end_to_end.py asserts against.
 
@@ -38,20 +36,20 @@ def run_once(seed: int) -> dict:
 
     from test_end_to_end import write_synthetic_dataset
 
-    from annonet_tpu import serialization
-    from annonet_tpu.classes import parse_anno_classes
-    from annonet_tpu.data.crop import CropOptions
-    from annonet_tpu.data.dataset import find_image_files
-    from annonet_tpu.data.pipeline import CropPipeline
-    from annonet_tpu.data.sample import read_sample
-    from annonet_tpu.infer.core import TiledInferer, annonet_infer
-    from annonet_tpu.infer.evaluation import (
+    from annonet_jax import serialization
+    from annonet_jax.classes import parse_anno_classes
+    from annonet_jax.data.crop import CropOptions
+    from annonet_jax.data.dataset import find_image_files
+    from annonet_jax.data.pipeline import CropPipeline
+    from annonet_jax.data.sample import read_sample
+    from annonet_jax.infer.core import TiledInferer, annonet_infer
+    from annonet_jax.infer.evaluation import (
         new_confusion_matrix,
         update_confusion_matrix_per_pixel,
         update_confusion_matrix_per_region,
     )
-    from annonet_tpu.models.segnet import SegNetConfig
-    from annonet_tpu.train.trainer import Trainer, TrainerConfig
+    from annonet_jax.models.segnet import SegNetConfig
+    from annonet_jax.train.trainer import Trainer, TrainerConfig
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp_path = Path(tmp)
@@ -125,16 +123,15 @@ def main() -> None:
     runs = [run_once(seed) for seed in (0, 1, 2)]
     summary = {
         "config": (
-            "BASELINE.json configs[0]: synthetic 2-class dataset, "
+            "synthetic 2-class dataset, "
             "train 40 steps (batch 8, crop 16, level_count 1, width 8, "
             "lr 0.05, deterministic crop stream) -> tiled inference "
             "round trip, CPU f32"
         ),
         "reference_measurement": (
-            "IMPOSSIBLE: all reference dependencies are empty git "
-            "submodules (/root/reference/.gitmodules) and the sandbox has "
-            "no network egress; these rebuild-measured numbers are the "
-            "standing regression targets instead (VERDICT.md item 7)"
+            "not possible: all reference dependencies are empty git "
+            "submodules; these rebuild-measured numbers are the "
+            "standing regression targets instead"
         ),
         "runs": runs,
         "pixel_accuracy_min": min(r["pixel_accuracy"] for r in runs),

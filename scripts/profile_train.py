@@ -1,8 +1,7 @@
-"""Ablation profile of the fused train step (VERDICT.md item 3).
+"""Ablation profile of the fused train step.
 
-Times, with the honest chained-dispatch + one-scalar-readback methodology
-(CLAUDE.md), each slice of the training step on the flagship config so the
-bottleneck is attributable:
+Times each slice of the training step on the flagship config, on the host
+clock up to jax.block_until_ready, so the bottleneck is attributable:
 
   fwd        forward only (loss value; no grad)
   fwd_folded forward only through apply_train_folded
@@ -11,7 +10,7 @@ bottleneck is attributable:
   full_folded the fused step with folded_training=True
   aug        augmentation + weighting alone
 
-Run ONE at a time on the TPU: python -u scripts/profile_train.py
+Run ONE at a time on the GPU: python -u scripts/profile_train.py
 """
 
 import argparse
@@ -24,26 +23,18 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def timed(fn, args_builder, iters, sync):
-    """Dispatch `iters` chained calls, sync one scalar, subtract RTT."""
+    """Seconds per call over `iters` chained calls, ended by
+    jax.block_until_ready (the first call compiles and is not timed)."""
     import jax
-    import jax.numpy as jnp
 
     state = args_builder()
-    out = fn(*state)
-    sync_val = sync(out)
-    trivial = jax.jit(lambda a: a + 1.0)
-    float(trivial(sync_val))
-    t0 = time.monotonic()
-    for _ in range(3):
-        float(trivial(sync_val))
-    rtt = (time.monotonic() - t0) / 3
-
-    t0 = time.monotonic()
+    jax.block_until_ready(sync(fn(*state)))
+    t0 = time.perf_counter()
     for _ in range(iters):
         out = fn(*state)
         state = update_state(state, out)
-    float(trivial(sync(out)) + 0.0)
-    elapsed = max(1e-9, time.monotonic() - t0 - rtt)
+    jax.block_until_ready(sync(out))
+    elapsed = max(1e-9, time.perf_counter() - t0)
     return elapsed / iters
 
 
@@ -64,17 +55,17 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from annonet_tpu.data.crop import CropOptions
-    from annonet_tpu.models.segnet import (
+    from annonet_jax.data.crop import CropOptions
+    from annonet_jax.models.segnet import (
         SegNetConfig,
         apply_train,
         init_state,
     )
-    from annonet_tpu.models.folded_runtime import apply_train_folded
-    from annonet_tpu.ops.augment import augment_batch
-    from annonet_tpu.ops.loss import weighted_pixel_cross_entropy
-    from annonet_tpu.ops.weighting import batched_label_weights
-    from annonet_tpu.train.trainer import (
+    from annonet_jax.models.folded_runtime import apply_train_folded
+    from annonet_jax.ops.augment import augment_batch
+    from annonet_jax.ops.loss import weighted_pixel_cross_entropy
+    from annonet_jax.ops.weighting import batched_label_weights
+    from annonet_jax.train.trainer import (
         TrainerConfig,
         make_fused_train_step,
     )
@@ -104,9 +95,10 @@ def main():
     lr = jnp.float32(0.1)
     m = jnp.float32(0.99)
     key = jax.random.PRNGKey(1)
-    float(jnp.max(images).astype(jnp.int32))  # finish uploads
+    jax.block_until_ready(images)  # finish uploads
 
-    fwd_flop_per_crop = 2.44187136e9  # see VERDICT item-3 budget (level 3)
+    # forward FLOPs per 192^2 crop of the level-3 flagship net
+    fwd_flop_per_crop = 2.44187136e9
 
     results = {}
 
@@ -120,7 +112,6 @@ def main():
             "ms": round(sec * 1e3, 2),
             "crops_per_s": round(crops_s, 1),
             "TFLOP_s": round(tflops, 2),
-            "MFU_pct": round(tflops / 197 * 100, 2),
         }
         print(name, json.dumps(results[name]), flush=True)
 
@@ -202,20 +193,13 @@ def main():
             return [params, bn_stats, velocity, lr, m, key, images, labels]
 
         state = full_builder()
-        out = step(*state)
-        float(jnp.max(out[3]))
-        trivial = jax.jit(lambda a: a + 1.0)
-        float(trivial(out[3]))
-        t0 = time.monotonic()
-        for _ in range(3):
-            float(trivial(out[3]))
-        rtt = (time.monotonic() - t0) / 3
+        out = jax.block_until_ready(step(*state))
         p, s, v, loss = out
-        t0 = time.monotonic()
+        t0 = time.perf_counter()
         for i in range(args.iters):
             p, s, v, loss = step(p, s, v, lr, m, key, images, labels)
-        float(trivial(loss))
-        sec = max(1e-9, time.monotonic() - t0 - rtt) / args.iters
+        jax.block_until_ready(loss)
+        sec = max(1e-9, time.perf_counter() - t0) / args.iters
         report(name, sec)
 
     print(json.dumps({"profile": results}), flush=True)

@@ -46,9 +46,9 @@ def _make_model(path: str) -> None:
     """Tiny self-describing artifact (same recipe as the serve tests)."""
     import jax
 
-    from annonet_tpu import serialization
-    from annonet_tpu.classes import anno_classes_to_json, default_anno_classes
-    from annonet_tpu.models.segnet import SegNetConfig, fold_batchnorm, init_state
+    from annonet_jax import serialization
+    from annonet_jax.classes import anno_classes_to_json, default_anno_classes
+    from annonet_jax.models.segnet import SegNetConfig, fold_batchnorm, init_state
 
     config = SegNetConfig(class_count=3, level_count=0, base_width=16)
     params, bn = init_state(jax.random.PRNGKey(0), config)
@@ -86,11 +86,11 @@ def main(argv=None) -> int:
 
     import numpy as np
 
-    from annonet_tpu.cli.common import apply_platform_env
-    from annonet_tpu.client import ServeClient, ServeError
+    from annonet_jax.cli.common import apply_platform_env
+    from annonet_jax.client import ServeClient, ServeError
 
     apply_platform_env()  # the script's own jax (model creation) honors
-    # ANNONET_TPU_PLATFORM just like the CLIs; the serve subprocess
+    # ANNONET_PLATFORM just like the CLIs; the serve subprocess
     # inherits the environment and pins itself.
 
     tmp = None
@@ -102,7 +102,7 @@ def main(argv=None) -> int:
 
     port = _free_port()
     cmd = [
-        sys.executable, "-m", "annonet_tpu.cli.serve",
+        sys.executable, "-m", "annonet_jax.cli.serve",
         "--model", model_path, "--host", "127.0.0.1", "--port", str(port),
         "--tile-max-width", str(args.tile_max), "--tile-max-height", str(args.tile_max),
         "--quantize", args.quantize,
@@ -161,7 +161,7 @@ def main(argv=None) -> int:
                 n += 1
 
         def reload_worker() -> None:
-            from annonet_tpu import serialization
+            from annonet_jax import serialization
 
             while not stop.is_set() and time.monotonic() < end:
                 if stop.wait(min(args.reload_interval, max(0.0, end - time.monotonic()))):

@@ -38,9 +38,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def _make_dataset(root: str, n_images: int, size: int, seed: int = 0) -> None:
     """Separable 3-class data using the default palette (classes.py)."""
     import numpy as np
-    from PIL import Image
 
-    from annonet_tpu.classes import anno_classes_to_json, default_anno_classes
+    from annonet_jax.classes import anno_classes_to_json, default_anno_classes
+    from annonet_jax.data.sample import save_png
 
     classes = default_anno_classes()
     with open(os.path.join(root, "anno_classes.json"), "w") as f:
@@ -59,11 +59,10 @@ def _make_dataset(root: str, n_images: int, size: int, seed: int = 0) -> None:
         mask = np.zeros((size, size, 4), np.uint8)
         for cls in (0, 1, 2):
             mask[labels == cls] = classes[cls].rgba_label
-        Image.fromarray(image.clip(0, 255).astype(np.uint8)).save(
-            os.path.join(root, f"img{i}.png")
-        )
-        Image.fromarray(mask, mode="RGBA").save(
-            os.path.join(root, f"img{i}.png_mask.png")
+        save_png(os.path.join(root, f"img{i}.png"),
+                 image.clip(0, 255).astype(np.uint8))
+        save_png(
+            os.path.join(root, f"img{i}.png_mask.png"), mask
         )
 
 
@@ -94,7 +93,7 @@ def main(argv=None) -> int:
         _make_dataset(ds, args.images, args.image_size)
         metrics_path = os.path.join(tmp, "metrics.jsonl")
         cmd = [
-            sys.executable, "-m", "annonet_tpu.cli.train", ds,
+            sys.executable, "-m", "annonet_jax.cli.train", ds,
             "-b", str(args.batch),
             "--max-total-steps", str(args.steps),
             "--level-count", str(args.level_count),

@@ -1,15 +1,14 @@
 """Composed-program rate vs tile plan for the shipped int8 path.
 
-Motivation (round 3, continued): the shipped auto plan at the reference's
-1024 max-tile default tiles a 4096^2 image as 25x 872^2 (13.3% redundant
-overlap area). Larger tiles cut redundancy, but tile WIDTH moves the
-folded width WB = tile_w/8 and XLA's int8 conv emitters cliff on WB
-(measured: WB=176 runs ~2x slower per pixel than WB=109). Tile HEIGHT has
-no WB effect — only area. This sweep measures the COMPOSED program
-(bench.py methodology: chained iterations, one scalar readback, RTT
-subtracted) across (tile_h, tile_w) plans to find the best real plan.
+The auto plan at the reference's 1024 max-tile default tiles a 4096^2
+image as 25x 872^2 (13.3% redundant overlap area). Larger tiles cut
+redundancy, but tile WIDTH also moves the folded width WB = tile_w/8,
+which the conv kernels may be sensitive to; tile HEIGHT changes only the
+area. This sweep measures the COMPOSED program (bench.py methodology:
+chained iterations ended by jax.block_until_ready) across (tile_h,
+tile_w) plans to find the best real plan.
 
-Run alone on the TPU.
+Run alone on the GPU (one process per card).
 """
 
 import os
@@ -18,7 +17,7 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from annonet_tpu.cli.common import apply_platform_env
+from annonet_jax.cli.common import apply_platform_env
 
 apply_platform_env()
 
@@ -26,9 +25,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from annonet_tpu.infer.core import TiledInferer
-from annonet_tpu.infer.tiling import TilingParameters
-from annonet_tpu.models.segnet import (
+from annonet_jax.infer.core import TiledInferer
+from annonet_jax.infer.tiling import TilingParameters
+from annonet_jax.models.segnet import (
     SegNetConfig,
     fold_batchnorm,
     init_state,
@@ -40,14 +39,10 @@ ITERS = 5
 
 # (max_tile_h, max_tile_w) candidates; None = SIZE (full-canvas dimension)
 PLANS = [
-    (1024, 1024),   # reference-default max tile
-    (1088, 1088),   # shipped TPU auto default
-    # slab plans (measured in round 3, seventh session — all LOSE to the
-    # 16-tile grid; the emitters want a filled tile batch, not fewer
-    # wider tiles): (1072, None) full-width slabs n=4 WB=512: 591;
-    # (2176, None) n=2: 561; (None, 1072) columns n=4 WB=134: 659;
-    # (544, None) n=9: 326; (None, 544) n=9 WB=64: 327 — vs 709 for
-    # (1088, 1088) in the same run. None = full canvas dimension.
+    (1024, 1024),   # the auto default (infer.tiling.default_tile_max)
+    (1088, 1088),   # a 4x4 grid of 1072-px tiles at 4096^2
+    (1440, 1440),   # a 3x3 grid
+    (1072, None),   # full-width slabs; None = full canvas dimension
 ]
 
 
@@ -58,15 +53,9 @@ def main() -> None:
     overlap = required_input_dimension(config)
 
     rng = np.random.default_rng(0)
-    image = jnp.asarray(
+    image = jax.block_until_ready(jnp.asarray(
         rng.integers(0, 256, size=(SIZE, SIZE, 3), dtype=np.uint8)
-    )
-    float(jnp.max(image).astype(jnp.int32))
-
-    def sync(arr) -> float:
-        return float(jnp.max(arr).astype(jnp.int32))
-
-    trivial = jax.jit(lambda a: a[0, 0].astype(jnp.int32))
+    ))
 
     ref_labels = None
     for max_h, max_w in PLANS:
@@ -79,10 +68,11 @@ def main() -> None:
             plan.tile_height * plan.tile_width * len(plan.tile_yx)
             / (SIZE * SIZE)
         )
-        t0 = time.monotonic()
-        labels, _ = inferer.infer_arrays(image, device_output=True)
-        sync(labels)
-        compile_s = time.monotonic() - t0
+        t0 = time.perf_counter()
+        labels, _ = jax.block_until_ready(
+            inferer.infer_arrays(image, device_output=True)
+        )
+        compile_s = time.perf_counter() - t0
         # label agreement vs the first (shipped) plan
         if ref_labels is None:
             ref_labels = labels
@@ -90,18 +80,13 @@ def main() -> None:
         else:
             n_diff = int(jnp.sum(labels != ref_labels))
             agree = f"{n_diff} px differ"
-        float(trivial(labels))
-        t0 = time.monotonic()
-        for _ in range(3):
-            float(trivial(labels))
-        rtt = (time.monotonic() - t0) / 3
         rates = []
         for _ in range(3):
-            t0 = time.monotonic()
+            t0 = time.perf_counter()
             for _ in range(ITERS):
                 labels, _ = inferer.infer_arrays(image, device_output=True)
-            sync(labels)
-            el = max(1e-9, time.monotonic() - t0 - rtt)
+            jax.block_until_ready(labels)
+            el = max(1e-9, time.perf_counter() - t0)
             rates.append(SIZE * SIZE * ITERS / 1e6 / el)
         med = sorted(rates)[1]
         print(

@@ -1,7 +1,7 @@
 """The documented public embedding surface (docs/API.md).
 
 Pins two things the rest of the suite reaches through deeper imports:
-(1) every name in ``annonet_tpu.__all__`` resolves from the top-level
+(1) every name in ``annonet_jax.__all__`` resolves from the top-level
 package (the lazy ``__getattr__`` exports), and (2) the minimal embedding
 program from docs/API.md §1-2 runs as written — the Python analog of the
 reference's advertised embedding surface (annonet_infer.h:15-17).
@@ -9,8 +9,8 @@ reference's advertised embedding surface (annonet_infer.h:15-17).
 
 import numpy as np
 
-import annonet_tpu
-from annonet_tpu import (
+import annonet_jax
+from annonet_jax import (
     IGNORE_LABEL,
     SegNetConfig,
     TiledInferer,
@@ -22,15 +22,15 @@ from annonet_tpu import (
     parse_anno_classes,
     save_model,
 )
-from annonet_tpu.classes import anno_classes_to_json
+from annonet_jax.classes import anno_classes_to_json
 
 
 def test_all_exports_resolve():
-    for name in annonet_tpu.__all__:
-        assert getattr(annonet_tpu, name) is not None, name
+    for name in annonet_jax.__all__:
+        assert getattr(annonet_jax, name) is not None, name
     # unknown attributes must raise AttributeError, not loop in __getattr__
     try:
-        annonet_tpu.no_such_symbol
+        annonet_jax.no_such_symbol
     except AttributeError:
         pass
     else:

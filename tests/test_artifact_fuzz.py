@@ -23,8 +23,8 @@ import zipfile
 import numpy as np
 import pytest
 
-from annonet_tpu import serialization
-from annonet_tpu.models.segnet import (
+from annonet_jax import serialization
+from annonet_jax.models.segnet import (
     SegNetConfig,
     fold_batchnorm,
     init_state,
@@ -43,7 +43,7 @@ def model_file(tmp_path_factory):
     path = tmp_path_factory.mktemp("artifacts") / "annonet.dnn"
     params, stats = init_state(jax.random.PRNGKey(0), CONFIG)
     runtime = fold_batchnorm(params, stats, CONFIG)
-    from annonet_tpu.classes import (
+    from annonet_jax.classes import (
         anno_classes_to_json,
         default_anno_classes,
     )
@@ -155,7 +155,7 @@ def test_model_meta_mutations_fail_cleanly(model_file, tmp_path):
 
     bad_metas = {
         "wrong_kind": {**good, "kind": "trainer_state"},
-        "wrong_format": {**good, "format": "annonet-tpu-npz-v999"},
+        "wrong_format": {**good, "format": "annonet-jax-npz-v999"},
         "config_not_dict": {**good, "model_config": "lol"},
         "config_missing": {k: v for k, v in good.items()
                            if k != "model_config"},
@@ -270,7 +270,7 @@ def test_model_corrupt_member_payload_fails_cleanly(model_file, tmp_path):
 
 @pytest.fixture(scope="module")
 def sync_file(tmp_path_factory):
-    from annonet_tpu.train.trainer import Trainer, TrainerConfig
+    from annonet_jax.train.trainer import Trainer, TrainerConfig
 
     path = tmp_path_factory.mktemp("artifacts") / "sync.dat"
     trainer = Trainer(CONFIG, TrainerConfig(initial_learning_rate=0.01))
@@ -321,7 +321,7 @@ def test_trainer_resume_from_corrupt_sync_file_is_a_clean_error(
     """Trainer resume (_try_resume) on a corrupt file must raise the
     loader's clean RuntimeError ("cannot resume: ... unreadable") — the
     CLI turns it into a one-line exit-1 — not crash."""
-    from annonet_tpu.train.trainer import Trainer, TrainerConfig
+    from annonet_jax.train.trainer import Trainer, TrainerConfig
 
     p = tmp_path / "sync_bad.dat"
     p.write_bytes(sync_file.read_bytes()[:300])
@@ -411,7 +411,7 @@ def _write_corpus(tmp_path, model_file):
 
 
 def test_cli_infer_corrupt_model_exits_1(model_file, tmp_path, capsys):
-    from annonet_tpu.cli.infer import main as infer_main
+    from annonet_jax.cli.infer import main as infer_main
 
     data_dir = tmp_path / "data"
     data_dir.mkdir()
@@ -430,7 +430,7 @@ def test_cli_infer_corrupt_model_exits_1(model_file, tmp_path, capsys):
 
 
 def test_cli_inspect_corrupt_model_exits_1(model_file, tmp_path, capsys):
-    from annonet_tpu.cli.inspect import main as inspect_main
+    from annonet_jax.cli.inspect import main as inspect_main
 
     for p in _write_corpus(tmp_path, model_file):
         rc = inspect_main([str(p)])

@@ -2,7 +2,7 @@
 
 import pytest
 
-from annonet_tpu.cli import autotune
+from annonet_jax.cli import autotune
 
 
 def searcher(max_working):
@@ -37,9 +37,9 @@ def test_deferred_loss_sync_matches_blocking():
     """loss_sync_interval > 1 must record the same losses, just later."""
     import numpy as np
 
-    from annonet_tpu.data.crop import CropOptions
-    from annonet_tpu.models.segnet import SegNetConfig
-    from annonet_tpu.train.trainer import Trainer, TrainerConfig
+    from annonet_jax.data.crop import CropOptions
+    from annonet_jax.models.segnet import SegNetConfig
+    from annonet_jax.train.trainer import Trainer, TrainerConfig
 
     mc = SegNetConfig(
         class_count=2, level_count=1, base_width=4, compute_dtype="float32"
@@ -74,9 +74,9 @@ def test_remat_matches_no_remat():
     import jax
     import numpy as np
 
-    from annonet_tpu.data.crop import CropOptions
-    from annonet_tpu.models.segnet import SegNetConfig
-    from annonet_tpu.train.trainer import Trainer, TrainerConfig
+    from annonet_jax.data.crop import CropOptions
+    from annonet_jax.models.segnet import SegNetConfig
+    from annonet_jax.train.trainer import Trainer, TrainerConfig
 
     mc = SegNetConfig(
         class_count=2, level_count=1, base_width=4, compute_dtype="float32"
@@ -102,8 +102,7 @@ def test_remat_matches_no_remat():
 
 @pytest.mark.slow
 def test_autotune_with_mesh_end_to_end(tmp_path):
-    """BASELINE.json stretch config 5: autotuned minibatch + data-parallel
-    training. The search probes and the real run all pass --mesh 8 through
+    """Autotuned minibatch + data-parallel training. The search probes and the real run all pass --mesh 8 through
     to the train CLI on the virtual mesh."""
     import os
     import subprocess
@@ -113,14 +112,14 @@ def test_autotune_with_mesh_end_to_end(tmp_path):
 
     write_synthetic_dataset(tmp_path)
     env = dict(os.environ)
-    env["ANNONET_TPU_VIRTUAL_MESH"] = "1"  # fake 8 CPU devices in probes
+    env["ANNONET_VIRTUAL_MESH"] = "1"  # fake 8 CPU devices in probes
     # the subprocess runs from tmp_path; make the repo importable whether or
     # not the package is pip-installed (fresh sandboxes are not)
     repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env["PYTHONPATH"] = repo_root + os.pathsep + env.get("PYTHONPATH", "")
     out = subprocess.run(
         [
-            sys.executable, "-m", "annonet_tpu.cli.autotune",
+            sys.executable, "-m", "annonet_jax.cli.autotune",
             "--start", "8",
             str(tmp_path),
             "--mesh", "8",
@@ -146,7 +145,7 @@ def test_autotune_with_mesh_end_to_end(tmp_path):
 def test_autotune_help_does_not_probe(capsys):
     """--help and no-args print usage instead of forwarding into probe
     subprocesses (every OTHER flag passes through to annonet_train)."""
-    from annonet_tpu.cli.autotune import main
+    from annonet_jax.cli.autotune import main
 
     assert main(["--help"]) == 0
     out = capsys.readouterr().out

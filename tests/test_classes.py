@@ -5,7 +5,7 @@ import json
 
 import pytest
 
-from annonet_tpu.classes import (
+from annonet_jax.classes import (
     AnnoClass,
     RGBA_IGNORE,
     anno_classes_to_json,

@@ -10,7 +10,7 @@ from tests.test_end_to_end import write_synthetic_dataset
 
 
 def test_train_parser_defaults():
-    from annonet_tpu.cli.train import build_parser
+    from annonet_jax.cli.train import build_parser
 
     args = build_parser().parse_args(["/data"])
     assert args.input_directory_positional == "/data"
@@ -45,18 +45,16 @@ def test_train_parser_defaults():
 
 
 def test_infer_parser_defaults_and_h_flag():
-    from annonet_tpu.cli.infer import build_parser
+    from annonet_jax.cli.infer import build_parser
 
     args = build_parser().parse_args(["/data"])
-    # parse-time default is None = auto; resolution is backend-dependent
-    # (1088 on TPU per the measured plan sweep, 1024 elsewhere — the
-    # reference's own default is hardware-conditional too,
-    # annonet_infer_main.cpp:300-307)
+    # parse-time default is None = auto: 1024, the reference's default on
+    # its CUDA build (annonet_infer_main.cpp:300-307)
     assert args.tile_max_width is None
     assert args.tile_max_height is None
-    from annonet_tpu.cli.common import default_tile_max
+    from annonet_jax.cli.common import default_tile_max
 
-    assert default_tile_max() == 1024  # CPU test backend
+    assert default_tile_max() == 1024
     assert args.gain == [] and args.detection == []
     # -h means tile-max-height like the reference, NOT help
     args = build_parser().parse_args(["-w", "512", "-h", "256", "/data"])
@@ -70,7 +68,7 @@ def test_infer_parser_defaults_and_h_flag():
 
 
 def test_parse_class_specific_values():
-    from annonet_tpu.cli.common import parse_class_specific_values
+    from annonet_jax.cli.common import parse_class_specific_values
 
     assert parse_class_specific_values(["1:-0.5"], 3) == [0.0, -0.5, 0.0]
     with pytest.raises(ValueError, match="index:gain"):
@@ -80,7 +78,7 @@ def test_parse_class_specific_values():
 
 
 def test_train_requires_input_directory(capsys):
-    from annonet_tpu.cli.train import main
+    from annonet_jax.cli.train import main
 
     assert main([]) == 1
     out = capsys.readouterr().out
@@ -91,7 +89,7 @@ def test_grayscale_color_offset_warns(tmp_path, capsys):
     """-o with --grayscale is a no-op (reference grayscale builds omit -o
     from the flag table entirely, annonet_train_main.cpp:285-287); we
     accept it for a uniform surface but warn."""
-    from annonet_tpu.cli.train import main
+    from annonet_jax.cli.train import main
 
     # empty directory -> exits 1 after the config echo, which is after
     # the warning — no training happens, the test stays fast
@@ -106,8 +104,8 @@ def test_grayscale_color_offset_warns(tmp_path, capsys):
 
 @pytest.mark.slow
 def test_cli_train_then_infer_round_trip(tmp_path, capsys):
-    from annonet_tpu.cli.infer import main as infer_main
-    from annonet_tpu.cli.train import main as train_main
+    from annonet_jax.cli.infer import main as infer_main
+    from annonet_jax.cli.train import main as train_main
 
     write_synthetic_dataset(tmp_path)
     model_path = str(tmp_path / "annonet.dnn")
@@ -161,7 +159,7 @@ def test_cli_train_then_infer_round_trip(tmp_path, capsys):
 @pytest.mark.slow
 def test_cli_train_with_mesh(tmp_path, capsys):
     """--mesh N trains data-parallel on the virtual 8-device CPU mesh."""
-    from annonet_tpu.cli.train import main as train_main
+    from annonet_jax.cli.train import main as train_main
 
     write_synthetic_dataset(tmp_path, n_images=2, size=32)
     model_path = str(tmp_path / "annonet.dnn")
@@ -194,8 +192,8 @@ def test_cli_train_with_mesh(tmp_path, capsys):
 def test_cli_infer_with_mesh_and_int8(tmp_path, capsys):
     """--mesh N shards each image's tile batch across the virtual 8-device
     CPU mesh (tile-parallel inference), composing with --quantize int8."""
-    from annonet_tpu.cli.infer import main as infer_main
-    from annonet_tpu.cli.train import main as train_main
+    from annonet_jax.cli.infer import main as infer_main
+    from annonet_jax.cli.train import main as train_main
 
     write_synthetic_dataset(tmp_path, n_images=2, size=32)
     model_path = str(tmp_path / "annonet.dnn")
@@ -233,8 +231,8 @@ def test_cli_downscaling_factor_round_trip(tmp_path, capsys):
     """The downscaling factor persisted at train time is applied at
     inference and results are upscaled back to the original size
     (annonet_train_main.cpp:564, annonet_infer_main.cpp:398,413)."""
-    from annonet_tpu.cli.infer import main as infer_main
-    from annonet_tpu.cli.train import main as train_main
+    from annonet_jax.cli.infer import main as infer_main
+    from annonet_jax.cli.train import main as train_main
 
     write_synthetic_dataset(tmp_path, n_images=2, size=64)
     model_path = str(tmp_path / "annonet.dnn")
@@ -255,7 +253,7 @@ def test_cli_downscaling_factor_round_trip(tmp_path, capsys):
     )
     assert rc == 0
 
-    from annonet_tpu import serialization
+    from annonet_jax import serialization
 
     _, _, _, factor = serialization.load_model(model_path)
     assert factor == 2.0
@@ -273,7 +271,7 @@ def test_cli_downscaling_factor_round_trip(tmp_path, capsys):
 def test_infer_negative_detection_level_rejected(tmp_path, capsys):
     """annonet_infer.cpp:189 asserts detection levels >= 0; a negative level
     must be a clean one-line error, not silently accepted."""
-    from annonet_tpu.cli.common import parse_class_specific_values
+    from annonet_jax.cli.common import parse_class_specific_values
 
     with pytest.raises(ValueError, match="non-negative"):
         parse_class_specific_values(["1:-0.5"], 3, require_non_negative=True)
@@ -284,7 +282,7 @@ def test_infer_negative_detection_level_rejected(tmp_path, capsys):
 def test_infer_missing_model_is_clean_error(tmp_path, capsys):
     """Top-level catch parity (annonet_infer_main.cpp tail): message + rc 1,
     no traceback, no hung threads."""
-    from annonet_tpu.cli.infer import main as infer_main
+    from annonet_jax.cli.infer import main as infer_main
 
     write_synthetic_dataset(tmp_path)
     rc = infer_main([str(tmp_path), "--model", str(tmp_path / "missing.dnn")])
@@ -299,8 +297,8 @@ def test_infer_corrupt_input_is_clean_error(tmp_path, capsys):
     exit code 1, and the reader/writer threads shut down."""
     import threading
 
-    from annonet_tpu.cli.infer import main as infer_main
-    from annonet_tpu.cli.train import main as train_main
+    from annonet_jax.cli.infer import main as infer_main
+    from annonet_jax.cli.train import main as train_main
 
     write_synthetic_dataset(tmp_path)
     rc = train_main(
@@ -346,7 +344,7 @@ def test_infer_corrupt_input_is_clean_error(tmp_path, capsys):
 def test_train_setup_error_is_clean(tmp_path, capsys):
     """Setup-phase failures (corrupt anno_classes.json) print one line and
     return 1 (annonet_train_main.cpp:640-644)."""
-    from annonet_tpu.cli.train import main as train_main
+    from annonet_jax.cli.train import main as train_main
 
     write_synthetic_dataset(tmp_path)
     (tmp_path / "anno_classes.json").write_text("{not json")
@@ -361,7 +359,7 @@ def test_index_ordered_results():
     import queue
     import threading
 
-    from annonet_tpu.cli.common import IndexOrderedResults
+    from annonet_jax.cli.common import IndexOrderedResults
 
     q = queue.Queue(maxsize=4)
     arrival = [3, 0, 2, 5, 1, 4, 7, 6]
@@ -382,7 +380,7 @@ def test_index_ordered_results():
 def test_infer_corrupt_model_is_clean_error(tmp_path, capsys):
     """A garbage annonet.dnn yields a one-line error and exit 1 (top-level
     catch parity), not a traceback."""
-    from annonet_tpu.cli.infer import main as infer_main
+    from annonet_jax.cli.infer import main as infer_main
 
     write_synthetic_dataset(tmp_path)
     model = tmp_path / "annonet.dnn"
@@ -398,8 +396,8 @@ def test_cli_infer_image_batch_matches_unbatched(tmp_path, capsys):
     """--image-batch N groups same-size images into one device forward;
     results (confusion matrices, result PNGs) are identical to the
     per-image default."""
-    from annonet_tpu.cli.infer import main as infer_main
-    from annonet_tpu.cli.train import main as train_main
+    from annonet_jax.cli.infer import main as infer_main
+    from annonet_jax.cli.train import main as train_main
 
     write_synthetic_dataset(tmp_path, n_images=4, size=48)
     model_path = str(tmp_path / "annonet.dnn")
@@ -444,7 +442,7 @@ def test_cli_infer_image_batch_matches_unbatched(tmp_path, capsys):
 def test_train_parse_error_exit_codes(tmp_path, capsys):
     """cxxopts parse-error parity (annonet_train_main.cpp:329-335): the
     message, a blank line, and the FULL help text go to stderr, exit 2."""
-    from annonet_tpu.cli.train import main as train_main
+    from annonet_jax.cli.train import main as train_main
 
     # unknown flag
     rc = train_main(["--no-such-flag", str(tmp_path)])
@@ -471,7 +469,7 @@ def test_train_parse_error_exit_codes(tmp_path, capsys):
 
 def test_infer_parse_error_exit_codes(tmp_path, capsys):
     """Same parity for annonet_infer (annonet_infer_main.cpp:335-340)."""
-    from annonet_tpu.cli.infer import main as infer_main
+    from annonet_jax.cli.infer import main as infer_main
 
     rc = infer_main(["--no-such-flag", str(tmp_path)])
     assert rc == 2
@@ -489,7 +487,7 @@ def test_train_loop_error_exits_2(tmp_path, capsys):
     the wrong size, so the first crop dequeues as an error) print the
     message and exit 2 (annonet_train_main.cpp:616-620) — unlike setup
     errors, which exit 1 through the outer catch (:640-644)."""
-    from annonet_tpu.cli.train import main as train_main
+    from annonet_jax.cli.train import main as train_main
 
     write_synthetic_dataset(tmp_path, n_images=2, size=32)
     from PIL import Image
@@ -522,8 +520,8 @@ def test_infer_gain_format_error_exits_1(tmp_path, capsys):
     """Gain/detection format errors are thrown AFTER cxxopts parsing
     (annonet_infer_main.cpp:36-63, called at :357-358), so they hit the
     outer catch: message to stdout, exit 1 — not the parse-error exit 2."""
-    from annonet_tpu.cli.infer import main as infer_main
-    from annonet_tpu.cli.train import main as train_main
+    from annonet_jax.cli.infer import main as infer_main
+    from annonet_jax.cli.train import main as train_main
 
     write_synthetic_dataset(tmp_path, n_images=2, size=32)
     model_path = str(tmp_path / "annonet.dnn")
@@ -562,8 +560,8 @@ def test_infer_pipelined_timing_not_double_counted(tmp_path, capsys):
     dispatch->readback spans overlapped and the sum could exceed wall."""
     import re
 
-    from annonet_tpu.cli.infer import main as infer_main
-    from annonet_tpu.cli.train import main as train_main
+    from annonet_jax.cli.infer import main as infer_main
+    from annonet_jax.cli.train import main as train_main
 
     write_synthetic_dataset(tmp_path, n_images=6, size=48)
     model_path = str(tmp_path / "annonet.dnn")
@@ -599,18 +597,17 @@ def test_infer_pipelined_timing_not_double_counted(tmp_path, capsys):
 
 
 def test_platform_env_pins_backend_in_subprocess():
-    """ANNONET_TPU_PLATFORM=cpu must pin the backend even where a device
-    plugin pre-sets jax_platforms (overriding JAX_PLATFORMS silently) —
-    the CLIs call apply_platform_env before backend init."""
+    """ANNONET_PLATFORM=cpu must pin the backend with JAX_PLATFORMS
+    unset — the CLIs call apply_platform_env before backend init."""
     import os
     import subprocess
     import sys
 
     env = dict(os.environ)
     env.pop("JAX_PLATFORMS", None)
-    env["ANNONET_TPU_PLATFORM"] = "cpu"
+    env["ANNONET_PLATFORM"] = "cpu"
     code = (
-        "from annonet_tpu.cli.common import apply_platform_env;"
+        "from annonet_jax.cli.common import apply_platform_env;"
         "apply_platform_env();"
         "import jax;"
         "print(jax.devices()[0].platform)"
@@ -629,9 +626,9 @@ def test_platform_env_pins_backend_in_subprocess():
 
 def test_cli_infer_save_and_load_calibration(tmp_path, capsys):
     """--save-calibration persists the frozen int8 scales; --calibration
-    loads them so the run skips runtime calibration (TPU extension)."""
-    from annonet_tpu.cli.infer import main as infer_main
-    from annonet_tpu.cli.train import main as train_main
+    loads them so the run skips runtime calibration (extension)."""
+    from annonet_jax.cli.infer import main as infer_main
+    from annonet_jax.cli.train import main as train_main
 
     write_synthetic_dataset(tmp_path, n_images=2, size=32)
     model_path = str(tmp_path / "annonet.dnn")
@@ -692,8 +689,8 @@ def test_cli_infer_save_and_load_calibration(tmp_path, capsys):
 def test_cli_infer_blend_dtype_flag(tmp_path, capsys):
     """--blend-dtype float32 pins the pre-bf16 blend on the int8 path
     (escape hatch for bit-parity with the float path's blending)."""
-    from annonet_tpu.cli.infer import main as infer_main
-    from annonet_tpu.cli.train import main as train_main
+    from annonet_jax.cli.infer import main as infer_main
+    from annonet_jax.cli.train import main as train_main
 
     write_synthetic_dataset(tmp_path, n_images=2, size=32)
     model_path = str(tmp_path / "annonet.dnn")
@@ -726,25 +723,24 @@ def test_cli_infer_blend_dtype_flag(tmp_path, capsys):
 
 def test_every_entry_point_pins_the_platform():
     """Each process entry point (CLIs + bench.py) must call
-    apply_platform_env before backend init — on hosts with a device
-    plugin, JAX_PLATFORMS is silently overridden and a forgotten pin
-    sends a 'CPU' run to the device (two such bugs were found in serve
-    and bench after they shipped; this guards the class)."""
+    apply_platform_env before backend init, so ANNONET_PLATFORM pins every
+    process the same way (two entry points once shipped without the pin;
+    this guards the class)."""
     import inspect
     import os
 
-    import annonet_tpu.cli.autotune
-    import annonet_tpu.cli.infer
-    import annonet_tpu.cli.inspect
-    import annonet_tpu.cli.serve
-    import annonet_tpu.cli.train
+    import annonet_jax.cli.autotune
+    import annonet_jax.cli.infer
+    import annonet_jax.cli.inspect
+    import annonet_jax.cli.serve
+    import annonet_jax.cli.train
 
     for mod in (
-        annonet_tpu.cli.autotune,
-        annonet_tpu.cli.infer,
-        annonet_tpu.cli.inspect,
-        annonet_tpu.cli.serve,
-        annonet_tpu.cli.train,
+        annonet_jax.cli.autotune,
+        annonet_jax.cli.infer,
+        annonet_jax.cli.inspect,
+        annonet_jax.cli.serve,
+        annonet_jax.cli.train,
     ):
         src = inspect.getsource(mod.main)
         assert "apply_platform_env" in src, mod.__name__
@@ -759,11 +755,11 @@ def test_every_entry_point_pins_the_platform():
 @pytest.mark.slow
 def test_train_metrics_jsonl(tmp_path, capsys):
     """--metrics-jsonl appends a structured event stream: start, every
-    recorded loss at --metrics-interval 1, model saves, and done (TPU
+    recorded loss at --metrics-interval 1, model saves, and done (an
     extension — the printed verbose output is unchanged)."""
     import json
 
-    from annonet_tpu.cli.train import main as train_main
+    from annonet_jax.cli.train import main as train_main
 
     write_synthetic_dataset(tmp_path)
     metrics_path = tmp_path / "metrics.jsonl"
@@ -815,11 +811,11 @@ def test_train_metrics_jsonl(tmp_path, capsys):
 def test_infer_report_json(tmp_path, capsys):
     """--report-json writes the machine-readable run report: per-image
     timings, timing summary, and both confusion-matrix summaries with
-    per-class recall/precision (TPU extension)."""
+    per-class recall/precision (extension)."""
     import json
 
-    from annonet_tpu.cli.infer import main as infer_main
-    from annonet_tpu.cli.train import main as train_main
+    from annonet_jax.cli.infer import main as infer_main
+    from annonet_jax.cli.train import main as train_main
 
     write_synthetic_dataset(tmp_path)
     model_path = str(tmp_path / "annonet.dnn")
@@ -874,7 +870,7 @@ def test_train_divergence_in_tail_flush_exits_2(tmp_path, capsys):
     and NO final model save of the poisoned weights."""
     import json
 
-    from annonet_tpu.cli.train import main as train_main
+    from annonet_jax.cli.train import main as train_main
 
     write_synthetic_dataset(tmp_path)
     model_path = tmp_path / "annonet.dnn"
@@ -915,10 +911,10 @@ def test_train_divergence_in_tail_flush_exits_2(tmp_path, capsys):
 def test_train_validation_directory(tmp_path, capsys):
     """--validation-directory evaluates the exported net on a held-out
     anno dir after every save: per-pixel accuracy + per-class recall
-    printed and recorded as metrics events (TPU extension)."""
+    printed and recorded as metrics events (extension)."""
     import json
 
-    from annonet_tpu.cli.train import main as train_main
+    from annonet_jax.cli.train import main as train_main
 
     write_synthetic_dataset(tmp_path)
     val_dir = tmp_path / "val"
@@ -980,7 +976,7 @@ def test_train_validation_directory(tmp_path, capsys):
 def test_train_validation_quantize_int8(tmp_path, capsys):
     """--validation-quantize int8 validates the deployed (quantized) path;
     calibration restarts per save via update_params."""
-    from annonet_tpu.cli.train import main as train_main
+    from annonet_jax.cli.train import main as train_main
 
     write_synthetic_dataset(tmp_path)
     rc = train_main(
@@ -1013,7 +1009,7 @@ def test_validation_edge_cases(tmp_path, capsys):
     import numpy as np
     from PIL import Image
 
-    from annonet_tpu.cli.train import main as train_main
+    from annonet_jax.cli.train import main as train_main
 
     write_synthetic_dataset(tmp_path)
     base = [
@@ -1073,10 +1069,10 @@ def test_inspect_describes_artifact(tmp_path, capsys):
 
     import jax
 
-    from annonet_tpu import serialization
-    from annonet_tpu.classes import anno_classes_to_json, default_anno_classes
-    from annonet_tpu.cli.inspect import main as inspect_main
-    from annonet_tpu.models.segnet import (
+    from annonet_jax import serialization
+    from annonet_jax.classes import anno_classes_to_json, default_anno_classes
+    from annonet_jax.cli.inspect import main as inspect_main
+    from annonet_jax.models.segnet import (
         SegNetConfig,
         fold_batchnorm,
         init_state,

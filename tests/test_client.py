@@ -23,10 +23,10 @@ import pytest
 
 import jax
 
-from annonet_tpu import serialization
-from annonet_tpu.classes import anno_classes_to_json, default_anno_classes
-from annonet_tpu.cli.serve import build_parser, make_server
-from annonet_tpu.models.segnet import SegNetConfig, fold_batchnorm, init_state
+from annonet_jax import serialization
+from annonet_jax.classes import anno_classes_to_json, default_anno_classes
+from annonet_jax.cli.serve import build_parser, make_server
+from annonet_jax.models.segnet import SegNetConfig, fold_batchnorm, init_state
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "native")
@@ -248,7 +248,7 @@ def test_server_decode_raw_grayscale_conversion():
     raw==png equality for RGB is covered above)."""
     from PIL import Image
 
-    from annonet_tpu.cli.serve import _ModelService
+    from annonet_jax.cli.serve import _ModelService
 
     rng = np.random.default_rng(10)
     arr = rng.integers(0, 256, size=(16, 16, 3), dtype=np.uint8)

@@ -1,7 +1,7 @@
 """utils/compile_opts.py: the env-gated per-program compiler-options hook.
 
-TPU-only flag names cannot be validated on the CPU test backend; these
-tests cover the contract around them — parsing, the jit-identical default
+Backend-specific option names cannot be validated on the CPU test
+backend; these tests cover the contract around them — parsing, the jit-identical default
 path, signature caching, and the fallback for unrepresentable arguments.
 """
 
@@ -11,7 +11,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from annonet_tpu.utils.compile_opts import (
+from annonet_jax.utils.compile_opts import (
     _signature,
     get_compiler_options,
     opt_jit,
@@ -19,15 +19,15 @@ from annonet_tpu.utils.compile_opts import (
 
 
 def test_parse_unset(monkeypatch):
-    monkeypatch.delenv("ANNONET_TPU_COMPILER_OPTIONS", raising=False)
+    monkeypatch.delenv("ANNONET_COMPILER_OPTIONS", raising=False)
     assert get_compiler_options() is None
-    monkeypatch.setenv("ANNONET_TPU_COMPILER_OPTIONS", "   ")
+    monkeypatch.setenv("ANNONET_COMPILER_OPTIONS", "   ")
     assert get_compiler_options() is None
 
 
 def test_parse_pairs(monkeypatch):
     monkeypatch.setenv(
-        "ANNONET_TPU_COMPILER_OPTIONS",
+        "ANNONET_COMPILER_OPTIONS",
         "xla_a=1, xla_b=true xla_c=2.5",
     )
     assert get_compiler_options() == {
@@ -36,13 +36,13 @@ def test_parse_pairs(monkeypatch):
 
 
 def test_parse_rejects_bare_token(monkeypatch):
-    monkeypatch.setenv("ANNONET_TPU_COMPILER_OPTIONS", "xla_no_value")
+    monkeypatch.setenv("ANNONET_COMPILER_OPTIONS", "xla_no_value")
     with pytest.raises(ValueError):
         get_compiler_options()
 
 
 def test_default_path_matches_jit(monkeypatch):
-    monkeypatch.delenv("ANNONET_TPU_COMPILER_OPTIONS", raising=False)
+    monkeypatch.delenv("ANNONET_COMPILER_OPTIONS", raising=False)
     f = opt_jit(lambda x: x * 2 + 1)
     x = jnp.arange(8, dtype=jnp.float32)
     np.testing.assert_array_equal(
@@ -55,7 +55,7 @@ def test_option_path_compiles_and_caches(monkeypatch):
     # the AOT path only if the name is known; use a debug option the CPU
     # compiler understands on all backends
     monkeypatch.setenv(
-        "ANNONET_TPU_COMPILER_OPTIONS", "xla_embed_ir_in_executable=True"
+        "ANNONET_COMPILER_OPTIONS", "xla_embed_ir_in_executable=True"
     )
     calls = {"n": 0}
 
@@ -78,7 +78,7 @@ def test_option_path_compiles_and_caches(monkeypatch):
 
 def test_host_scalars_ride_signature(monkeypatch):
     monkeypatch.setenv(
-        "ANNONET_TPU_COMPILER_OPTIONS", "xla_embed_ir_in_executable=True"
+        "ANNONET_COMPILER_OPTIONS", "xla_embed_ir_in_executable=True"
     )
     f = opt_jit(lambda x, lr: x * lr)
     x = jnp.ones((4,), jnp.float32)
@@ -99,7 +99,7 @@ def test_unrepresentable_args_fall_back(monkeypatch):
 
 def test_bogus_option_rejected_at_compile(monkeypatch):
     monkeypatch.setenv(
-        "ANNONET_TPU_COMPILER_OPTIONS", "xla_totally_bogus_option_xyz=1"
+        "ANNONET_COMPILER_OPTIONS", "xla_totally_bogus_option_xyz=1"
     )
     f = opt_jit(lambda x: x + 1)
     with pytest.raises(Exception):

@@ -11,16 +11,16 @@ import jax
 import numpy as np
 import pytest
 
-from annonet_tpu.data.crop import CropOptions
-from annonet_tpu.infer.core import TiledInferer, annonet_infer
-from annonet_tpu.infer.tiling import TilingParameters
-from annonet_tpu.models.segnet import (
+from annonet_jax.data.crop import CropOptions
+from annonet_jax.infer.core import TiledInferer, annonet_infer
+from annonet_jax.infer.tiling import TilingParameters
+from annonet_jax.models.segnet import (
     SegNetConfig,
     fold_batchnorm,
     recommended_input_dimension,
     required_input_dimension,
 )
-from annonet_tpu.train.trainer import Trainer, TrainerConfig
+from annonet_jax.train.trainer import Trainer, TrainerConfig
 
 
 @pytest.mark.parametrize("level_count", [0, 1, 2, 3])
@@ -81,7 +81,7 @@ def test_receptive_field_is_tight_upper_bound(level_count):
     rf = required_input_dimension(config)
     dim = recommended_input_dimension(config, 4 * rf)
 
-    from annonet_tpu.models.segnet import apply_runtime, init_state
+    from annonet_jax.models.segnet import apply_runtime, init_state
 
     params, stats = init_state(jax.random.PRNGKey(1), config)
     runtime = fold_batchnorm(params, stats, config)

@@ -10,8 +10,8 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from annonet_tpu.classes import IGNORE_LABEL, default_anno_classes
-from annonet_tpu.data import (
+from annonet_jax.classes import IGNORE_LABEL, default_anno_classes
+from annonet_jax.data import (
     ImageFilenames,
     decode_rgba_label_image,
     find_image_files,
@@ -21,7 +21,7 @@ from annonet_tpu.data import (
     resize_label_image,
     rgba_label_to_index_label,
 )
-from annonet_tpu.data.codec import labeled_points_by_class
+from annonet_jax.data.codec import labeled_points_by_class
 
 CLASSES = default_anno_classes()
 

@@ -5,7 +5,7 @@ detection-biased per-region vote rule exists precisely for rare small
 blobs (/root/reference/annonet_infer_main.cpp:250-260) — and the
 benign 2-class floors in tests/test_end_to_end.py are near-ceiling and
 cannot grade that machinery (round-3 verdict). This suite runs the
-severe benchmark (annonet_tpu/data/synthetic.py: ~1000:1 imbalance,
+severe benchmark (annonet_jax/data/synthetic.py: ~1000:1 imbalance,
 sub-receptive-field defects straddling tile boundaries, clutter
 false-positive pressure, oversize mislabeled smears region-filtered in
 training) through the FULL pipeline — plateau-driven training to its
@@ -94,15 +94,15 @@ def test_region_filter_is_load_bearing(benchmark_run, pinned):
     (width 32 + photometric augmentation) the smear damage is
     neutralized — control and filtered arms score within noise — so
     --pin declines to record a control block and this test SKIPS by
-    design. The round-4 fragile-regime record (filtered 0.846 vs
-    control 0.700) stands as the filter's load-bearing evidence
-    (docs/ROUND4.md, docs/ROUND5.md); the filter's exact reference
-    semantics stay unit-tested in tests/test_data_layer.py."""
+    design. An earlier fragile-regime run (filtered 0.846 vs control
+    0.700, CPU) stands as the filter's load-bearing evidence; the
+    filter's exact reference semantics stay unit-tested in
+    tests/test_data_layer.py."""
     control = pinned.get("no_filter_control")
     if not control:
         pytest.skip(
             "no recorded control arm: the robust recipe neutralizes the "
-            "smear damage (docs/ROUND5.md); filter semantics are "
+            "smear damage; filter semantics are "
             "unit-tested elsewhere"
         )
     # the filtered benchmark run must beat the recorded unfiltered

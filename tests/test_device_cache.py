@@ -1,4 +1,4 @@
-"""Device-resident training data path (round 3, VERDICT item 1).
+"""Device-resident training data path.
 
 The HBM image pool + on-device crop gather must reproduce the host
 extraction path bit-for-bit — same crops, same random stream, same
@@ -10,12 +10,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from annonet_tpu.classes import IGNORE_LABEL
-from annonet_tpu.data.crop import CropOptions, extract_crop
-from annonet_tpu.models.segnet import SegNetConfig
-from annonet_tpu.ops.crop_gather import gather_crops
-from annonet_tpu.train.device_cache import DeviceImagePool
-from annonet_tpu.train.trainer import Trainer, TrainerConfig
+from annonet_jax.classes import IGNORE_LABEL
+from annonet_jax.data.crop import CropOptions, extract_crop
+from annonet_jax.models.segnet import SegNetConfig
+from annonet_jax.ops.crop_gather import gather_crops
+from annonet_jax.train.device_cache import DeviceImagePool
+from annonet_jax.train.trainer import Trainer, TrainerConfig
 
 
 class FakeSample:
@@ -226,9 +226,9 @@ def test_pipeline_next_decisions_matches_next_minibatch(tmp_path):
     extracting its decisions on the host reproduces the pixel batches."""
     from PIL import Image
 
-    from annonet_tpu.classes import default_anno_classes
-    from annonet_tpu.data.dataset import ImageFilenames
-    from annonet_tpu.data.pipeline import CropPipeline
+    from annonet_jax.classes import default_anno_classes
+    from annonet_jax.data.dataset import ImageFilenames
+    from annonet_jax.data.pipeline import CropPipeline
 
     anno_classes = default_anno_classes()
     rng = np.random.default_rng(3)
@@ -269,9 +269,9 @@ def test_next_decisions_pixel_fallback(tmp_path):
     degrades to the classic pixel batch — same contents."""
     from PIL import Image
 
-    from annonet_tpu.classes import default_anno_classes
-    from annonet_tpu.data.dataset import ImageFilenames
-    from annonet_tpu.data.pipeline import CropPipeline
+    from annonet_jax.classes import default_anno_classes
+    from annonet_jax.data.dataset import ImageFilenames
+    from annonet_jax.data.pipeline import CropPipeline
 
     anno_classes = default_anno_classes()
     rng = np.random.default_rng(4)
@@ -305,8 +305,8 @@ def test_cli_train_device_image_cache_round_trip(tmp_path, capsys):
     """annonet_train with the device image cache (default auto=on) trains
     end-to-end and exports a working model."""
     from tests.test_end_to_end import write_synthetic_dataset
-    from annonet_tpu.cli.infer import main as infer_main
-    from annonet_tpu.cli.train import main as train_main
+    from annonet_jax.cli.infer import main as infer_main
+    from annonet_jax.cli.train import main as train_main
 
     write_synthetic_dataset(tmp_path, n_images=3, size=48)
     model_path = str(tmp_path / "annonet.dnn")
@@ -363,8 +363,8 @@ def test_dp_pool_decisions_match_dp_pixels():
     DP-vs-DP with augmentation on."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from annonet_tpu.parallel.mesh import make_mesh
-    from annonet_tpu.parallel.train import DataParallelTrainer
+    from annonet_jax.parallel.mesh import make_mesh
+    from annonet_jax.parallel.train import DataParallelTrainer
 
     rng = np.random.default_rng(7)
     mc = SegNetConfig(
@@ -439,8 +439,8 @@ def test_dp_superstep_matches_dp_single_dispatches():
     bookkeeping; scan compilation may reorder reductions (1e-5)."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from annonet_tpu.parallel.mesh import make_mesh
-    from annonet_tpu.parallel.train import DataParallelTrainer
+    from annonet_jax.parallel.mesh import make_mesh
+    from annonet_jax.parallel.train import DataParallelTrainer
 
     rng = np.random.default_rng(13)
     mc = SegNetConfig(
@@ -674,8 +674,8 @@ def test_dp_pixel_batch_flushes_superstep_buffer():
     decisions before a pixel batch, like the base Trainer (the pin-budget
     fallback's batches must not overtake the buffered steps' BN-momentum
     indices): trajectory equals the steps_per_dispatch=1 run."""
-    from annonet_tpu.parallel.mesh import make_mesh
-    from annonet_tpu.parallel.train import DataParallelTrainer
+    from annonet_jax.parallel.mesh import make_mesh
+    from annonet_jax.parallel.train import DataParallelTrainer
 
     rng = np.random.default_rng(21)
     mc = SegNetConfig(

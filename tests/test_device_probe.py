@@ -1,6 +1,6 @@
 """device_probe: bounded first-device-op check (cli/common.py).
 
-A wedged TPU runtime makes the first real device op block forever —
+A wedged device runtime makes the first real device op block forever —
 minutes into startup, looking exactly like a framework hang. The probe
 bounds one upload -> compute -> readback and fails fast with triage
 text. These tests pin the three outcomes (ok / timeout / device error),
@@ -12,7 +12,7 @@ import time
 
 import pytest
 
-from annonet_tpu.cli.common import device_probe
+from annonet_jax.cli.common import device_probe
 
 
 def test_probe_passes_on_live_backend():
@@ -41,7 +41,7 @@ def test_probe_timeout_default_mode_exits_1():
     proc = subprocess.run(
         [sys.executable, "-c",
          "import time\n"
-         "from annonet_tpu.cli.common import device_probe\n"
+         "from annonet_jax.cli.common import device_probe\n"
          "device_probe(timeout_s=0.2, _op=lambda: time.sleep(60))\n"
          "raise SystemExit(99)  # must be unreachable\n"],
         capture_output=True, text=True, timeout=120,
@@ -59,7 +59,7 @@ def test_probe_error_propagates():
 
 
 def test_probe_env_zero_disables(monkeypatch):
-    monkeypatch.setenv("ANNONET_TPU_DEVICE_PROBE_TIMEOUT", "0")
+    monkeypatch.setenv("ANNONET_DEVICE_PROBE_TIMEOUT", "0")
 
     def must_not_run():
         raise AssertionError("probe ran while disabled")
@@ -68,7 +68,7 @@ def test_probe_env_zero_disables(monkeypatch):
 
 
 def test_probe_env_sets_default_timeout(monkeypatch):
-    monkeypatch.setenv("ANNONET_TPU_DEVICE_PROBE_TIMEOUT", "0.1")
+    monkeypatch.setenv("ANNONET_DEVICE_PROBE_TIMEOUT", "0.1")
     with pytest.raises(RuntimeError, match="within 0.1"):
         device_probe(_op=lambda: time.sleep(5.0), on_timeout="raise")
 
@@ -77,7 +77,7 @@ def test_every_device_entry_point_probes():
     """train/infer's _run_impl and serve's main must call device_probe
     after device selection, before real device work (same style as the
     platform-pin wiring test in test_cli.py)."""
-    from annonet_tpu.cli import infer, serve, train
+    from annonet_jax.cli import infer, serve, train
 
     for fn in (train._run_impl, infer._run_impl, serve.main):
         src = inspect.getsource(fn)

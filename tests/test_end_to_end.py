@@ -1,27 +1,27 @@
 """End-to-end slice test: synthetic dataset -> train -> export -> reload ->
 tiled inference -> confusion matrix. This reproduces the reference's de-facto
 integration flow (annonet_train then annonet_infer on an anno folder,
-SURVEY.md §4) that it never automated — config 1 in BASELINE.json."""
+SURVEY.md §4) that it never automated."""
 
 import numpy as np
 import pytest
 
-from annonet_tpu import serialization
-from annonet_tpu.classes import AnnoClass, anno_classes_to_json, parse_anno_classes
-from annonet_tpu.data.codec import labeled_points_by_class
-from annonet_tpu.data.crop import CropOptions
-from annonet_tpu.data.dataset import ImageFilenames, find_image_files
-from annonet_tpu.data.pipeline import CropPipeline
-from annonet_tpu.data.sample import read_sample
-from annonet_tpu.infer.core import TiledInferer, annonet_infer
-from annonet_tpu.infer.evaluation import (
+from annonet_jax import serialization
+from annonet_jax.classes import AnnoClass, anno_classes_to_json, parse_anno_classes
+from annonet_jax.data.codec import labeled_points_by_class
+from annonet_jax.data.crop import CropOptions
+from annonet_jax.data.dataset import ImageFilenames, find_image_files
+from annonet_jax.data.pipeline import CropPipeline
+from annonet_jax.data.sample import read_sample
+from annonet_jax.infer.core import TiledInferer, annonet_infer
+from annonet_jax.infer.evaluation import (
     format_confusion_matrix,
     new_confusion_matrix,
     update_confusion_matrix_per_pixel,
     update_confusion_matrix_per_region,
 )
-from annonet_tpu.models.segnet import SegNetConfig
-from annonet_tpu.train.trainer import Trainer, TrainerConfig
+from annonet_jax.models.segnet import SegNetConfig
+from annonet_jax.train.trainer import Trainer, TrainerConfig
 
 ANNO_CLASSES = [
     AnnoClass(0, (0, 255, 0, 64), "clean"),
@@ -142,7 +142,7 @@ def test_train_save_load_infer_round_trip(tmp_path):
     # accuracy floors pinned by scripts/measure_parity.py (PARITY_TARGETS.json
     # at the repo root): the reference CPU binary cannot be built here (empty
     # submodules, no egress), so the rebuild's measured synthetic-config
-    # accuracy is the standing regression target (VERDICT.md item 7)
+    # accuracy is the standing regression target
     import json
     import pathlib
 
@@ -170,7 +170,7 @@ def test_train_save_load_infer_round_trip(tmp_path):
     # formatted output renders
     assert "accuracy" in format_confusion_matrix(cm_region, classes_back)
 
-    # --- int8 quantized inference (the opt-in 2x-MXU path and bench.py's
+    # --- int8 quantized inference (the opt-in int8 path and bench.py's
     # default) must hold the same pinned accuracy floors on the trained net
     q_inferer = TiledInferer(params, config, quantize="int8")
     cm_q = new_confusion_matrix(config.class_count)

@@ -1,6 +1,6 @@
-"""The driver entry points must keep working — round 1's multichip check
-failed solely because __graft_entry__ never bootstrapped a virtual mesh
-(VERDICT.md item 1). Exercise both entries under the conftest 8-CPU mesh
+"""The entry points of __graft_entry__ must keep working — a multichip
+check once failed solely because __graft_entry__ never bootstrapped a
+virtual mesh. Exercise both entries under the conftest 8-CPU mesh
 AND in a pristine subprocess with no pre-set env, which is exactly how
 the driver invokes them.
 """

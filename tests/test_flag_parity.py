@@ -96,7 +96,7 @@ def _check_parity(parser, ref_options, *, skip_default=()):
 def test_train_flags_match_reference_table():
     """Every flag in annonet_train_main.cpp:276-308 exists with the same
     short name, default and arity."""
-    from annonet_tpu.cli.train import build_parser
+    from annonet_jax.cli.train import build_parser
 
     _check_parity(build_parser(), _reference_options("annonet_train_main.cpp"))
 
@@ -106,7 +106,7 @@ def test_infer_flags_match_reference_table():
     short name and arity (tile defaults are hardware-conditional in the
     reference itself — 1024 CUDA / 4096 CPU — and measured per-hardware
     here: docs/DESIGN.md §22)."""
-    from annonet_tpu.cli.infer import build_parser
+    from annonet_jax.cli.infer import build_parser
 
     _check_parity(build_parser(), _reference_options("annonet_infer_main.cpp"))
 

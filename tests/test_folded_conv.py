@@ -5,7 +5,7 @@ import numpy as np
 import pytest
 from jax import lax
 
-from annonet_tpu.ops.folded_conv import (
+from annonet_jax.ops.folded_conv import (
     conv3x3_folded,
     fold_width_kernel,
     pick_fold,

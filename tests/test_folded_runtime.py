@@ -5,11 +5,11 @@ import jax
 import numpy as np
 import pytest
 
-from annonet_tpu.models.folded_runtime import (
+from annonet_jax.models.folded_runtime import (
     apply_runtime_folded,
     fold_runtime_params,
 )
-from annonet_tpu.models.segnet import (
+from annonet_jax.models.segnet import (
     SegNetConfig,
     apply_runtime,
     fold_batchnorm,
@@ -76,9 +76,9 @@ def test_folding_gate_requires_decoder_mirrorable_fold():
     deep in fold_runtime_params — found by the round-5 detection sweep's
     base_width-24 arm). folding_supported now rejects them, and tiled
     inference runs the plain net instead of crashing."""
-    from annonet_tpu.infer.core import TiledInferer
-    from annonet_tpu.infer.tiling import TilingParameters
-    from annonet_tpu.models.folded_runtime import folding_supported
+    from annonet_jax.infer.core import TiledInferer
+    from annonet_jax.infer.tiling import TilingParameters
+    from annonet_jax.models.folded_runtime import folding_supported
 
     for level_count, base_width in ((3, 24), (3, 32), (2, 64)):
         config = SegNetConfig(

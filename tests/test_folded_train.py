@@ -4,8 +4,8 @@ import jax
 import numpy as np
 import pytest
 
-from annonet_tpu.models.folded_runtime import apply_train_folded
-from annonet_tpu.models.segnet import SegNetConfig, apply_train, init_state
+from annonet_jax.models.folded_runtime import apply_train_folded
+from annonet_jax.models.segnet import SegNetConfig, apply_train, init_state
 
 
 @pytest.mark.parametrize("level_count", [0, 1, 2, 3])

@@ -8,7 +8,7 @@ PNG/JPEG files (including crafted headers declaring absurd dimensions)
 must produce errors-as-data (Sample.error, annonet.cpp:171-173 parity) —
 never a crash, hang, or OOM — and the native path's accept/reject
 classification must match the pure-PIL fallback's
-(ANNONET_TPU_NO_NATIVE=1), because data/sample.py uses PIL as the final
+(ANNONET_NO_NATIVE=1), because data/sample.py uses PIL as the final
 arbiter on native decode errors.
 """
 
@@ -20,8 +20,8 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from annonet_tpu.classes import default_anno_classes
-from annonet_tpu.data.sample import (
+from annonet_jax.classes import default_anno_classes
+from annonet_jax.data.sample import (
     ImageFilenames,
     load_image,
     load_rgba,
@@ -142,7 +142,7 @@ def test_native_decode_never_crashes(corpus_dir):
     """decode_image_native on the whole corpus: ndarray or OSError,
     never a segfault (the test process surviving IS the assertion) and
     never an uncapped allocation (the 2^30-square PNG would be 4 TiB)."""
-    from annonet_tpu.native import decode_image_native, get_lib
+    from annonet_jax.native import decode_image_native, get_lib
 
     if get_lib() is None or not hasattr(get_lib(), "annonet_decode_image"):
         pytest.skip("native image I/O unavailable")
@@ -164,7 +164,7 @@ def test_adversarial_dims_rejected_fast(corpus_dir):
     against quadratic/hanging behavior."""
     import time
 
-    from annonet_tpu.native import decode_image_native, get_lib
+    from annonet_jax.native import decode_image_native, get_lib
 
     if get_lib() is None or not hasattr(get_lib(), "annonet_decode_image"):
         pytest.skip("native image I/O unavailable")
@@ -184,9 +184,9 @@ def test_load_image_classification_matches_pure_pil(corpus_dir, monkeypatch):
     results = {}
     for no_native in (False, True):
         if no_native:
-            monkeypatch.setenv("ANNONET_TPU_NO_NATIVE", "1")
+            monkeypatch.setenv("ANNONET_NO_NATIVE", "1")
         else:
-            monkeypatch.delenv("ANNONET_TPU_NO_NATIVE", raising=False)
+            monkeypatch.delenv("ANNONET_NO_NATIVE", raising=False)
         for name, path in corpus_dir.items():
             for fn, key in ((lambda p: load_image(p, False), "rgb"),
                             (lambda p: load_image(p, True), "gray"),
@@ -216,9 +216,9 @@ def test_read_sample_errors_as_data(corpus_dir, monkeypatch):
     errors = {}
     for no_native in (False, True):
         if no_native:
-            monkeypatch.setenv("ANNONET_TPU_NO_NATIVE", "1")
+            monkeypatch.setenv("ANNONET_NO_NATIVE", "1")
         else:
-            monkeypatch.delenv("ANNONET_TPU_NO_NATIVE", raising=False)
+            monkeypatch.delenv("ANNONET_NO_NATIVE", raising=False)
         for name, path in corpus_dir.items():
             s = read_sample(
                 ImageFilenames(image_filename=path),
@@ -254,9 +254,9 @@ def test_read_sample_corrupt_and_wrong_size_masks(tmp_path, monkeypatch):
 
     for no_native in (False, True):
         if no_native:
-            monkeypatch.setenv("ANNONET_TPU_NO_NATIVE", "1")
+            monkeypatch.setenv("ANNONET_NO_NATIVE", "1")
         else:
-            monkeypatch.delenv("ANNONET_TPU_NO_NATIVE", raising=False)
+            monkeypatch.delenv("ANNONET_NO_NATIVE", raising=False)
         s = read_sample(
             ImageFilenames(str(img_path), str(wrong)),
             anno_classes, True, 1.0,
@@ -284,7 +284,7 @@ def test_exotic_but_valid_pngs_decode_identically(tmp_path, monkeypatch):
     j.write_bytes(_valid_jpeg_bytes())
     files["JPEG"] = str(j)
 
-    from annonet_tpu.native import get_lib
+    from annonet_jax.native import get_lib
 
     if get_lib() is None or not hasattr(get_lib(), "annonet_decode_image"):
         pytest.skip("native image I/O unavailable")
@@ -293,9 +293,9 @@ def test_exotic_but_valid_pngs_decode_identically(tmp_path, monkeypatch):
         for fn in (lambda p: load_image(p, False),
                    lambda p: load_image(p, True),
                    load_rgba):
-            monkeypatch.delenv("ANNONET_TPU_NO_NATIVE", raising=False)
+            monkeypatch.delenv("ANNONET_NO_NATIVE", raising=False)
             native = fn(path)
-            monkeypatch.setenv("ANNONET_TPU_NO_NATIVE", "1")
+            monkeypatch.setenv("ANNONET_NO_NATIVE", "1")
             pil = fn(path)
             np.testing.assert_array_equal(
                 native, pil, err_msg=f"{name} differs native vs PIL"

@@ -6,16 +6,16 @@ import numpy as np
 import jax
 import pytest
 
-from annonet_tpu.classes import IGNORE_LABEL, default_anno_classes
-from annonet_tpu.infer.core import TiledInferer, annonet_infer
-from annonet_tpu.infer.evaluation import (
+from annonet_jax.classes import IGNORE_LABEL, default_anno_classes
+from annonet_jax.infer.core import TiledInferer, annonet_infer
+from annonet_jax.infer.evaluation import (
     format_confusion_matrix,
     new_confusion_matrix,
     update_confusion_matrix_per_pixel,
     update_confusion_matrix_per_region,
 )
-from annonet_tpu.infer.tiling import TilingParameters, plan_tiles, ramp_weights
-from annonet_tpu.models.segnet import (
+from annonet_jax.infer.tiling import TilingParameters, plan_tiles, ramp_weights
+from annonet_jax.models.segnet import (
     SegNetConfig,
     fold_batchnorm,
     init_state,
@@ -71,7 +71,7 @@ def test_plan_grid_covers_image_with_overlap():
 def test_weight_sum_factors_exact_factorization():
     # wsum(y,x) = wy(y)*wx(x) exactly for grid plans: the separable-gain
     # argmax fold (infer/core.py) relies on it
-    from annonet_tpu.infer.tiling import inverse_weight_sum, weight_sum_factors
+    from annonet_jax.infer.tiling import inverse_weight_sum, weight_sum_factors
 
     config = small_config()
     for (h, w, mt) in ((100, 70, 32), (20, 30, 64), (96, 200, 48)):
@@ -108,13 +108,13 @@ def test_int8_argmax_fold_matches_normalize_path():
 
     outs = {}
     for name, env in (("normalize", "1"), ("folded-gain", "")):
-        os.environ["ANNONET_TPU_NO_ARGMAX_FOLD"] = env
+        os.environ["ANNONET_NO_ARGMAX_FOLD"] = env
         try:
             inf = TiledInferer(params, config, tiling, quantize="int8")
             inf.infer_arrays(image)  # calibration pass (bf16 program)
             labels, _ = inf.infer_arrays(image, gains=gains)
         finally:
-            os.environ.pop("ANNONET_TPU_NO_ARGMAX_FOLD", None)
+            os.environ.pop("ANNONET_NO_ARGMAX_FOLD", None)
         outs[name] = labels
     agree = (outs["normalize"] == outs["folded-gain"]).mean()
     assert agree > 0.999, f"only {agree:.5f} agreement"
@@ -159,19 +159,6 @@ def test_single_vs_multi_tile_interior_match():
     # near-tie pixels
     agree = (labels_single == labels_multi).mean()
     assert agree > 0.99, f"only {agree:.4f} agreement between tilings"
-
-
-def test_pallas_blend_path_matches_default():
-    config = small_config()
-    params = runtime_net(config)
-    rng = np.random.default_rng(5)
-    image = rng.integers(0, 256, size=(80, 96, 3), dtype=np.uint8)
-    tiling = TilingParameters(48, 48, 8, 8)
-    default = TiledInferer(params, config, tiling)
-    pallas = TiledInferer(params, config, tiling, use_pallas_blend=True)
-    np.testing.assert_array_equal(
-        annonet_infer(default, image), annonet_infer(pallas, image)
-    )
 
 
 def test_gains_shift_argmax():
@@ -324,12 +311,12 @@ def test_gain_semantics_in_overlap_bands_documented_deviation():
     """
     import jax
 
-    from annonet_tpu.infer.core import TiledInferer
-    from annonet_tpu.infer.tiling import (
+    from annonet_jax.infer.core import TiledInferer
+    from annonet_jax.infer.tiling import (
         TilingParameters,
         inverse_weight_sum,
     )
-    from annonet_tpu.models.segnet import (
+    from annonet_jax.models.segnet import (
         SegNetConfig,
         fold_batchnorm,
         init_state,
@@ -409,12 +396,12 @@ def test_reference_blend_semantics_detection_seed_margins():
     that level) cannot express."""
     import jax
 
-    from annonet_tpu.infer.core import TiledInferer
-    from annonet_tpu.infer.tiling import (
+    from annonet_jax.infer.core import TiledInferer
+    from annonet_jax.infer.tiling import (
         TilingParameters,
         inverse_weight_sum,
     )
-    from annonet_tpu.models.segnet import (
+    from annonet_jax.models.segnet import (
         SegNetConfig,
         fold_batchnorm,
         init_state,
@@ -468,11 +455,11 @@ def test_batch_exact_size_no_padding_matches_bucketed():
     power-of-two-bucketed path exactly."""
     import jax
 
-    from annonet_tpu.models.segnet import (
+    from annonet_jax.models.segnet import (
         SegNetConfig, fold_batchnorm, init_state,
     )
-    from annonet_tpu.infer.core import TiledInferer
-    from annonet_tpu.infer.tiling import TilingParameters
+    from annonet_jax.infer.core import TiledInferer
+    from annonet_jax.infer.tiling import TilingParameters
 
     config = SegNetConfig(class_count=3, level_count=0, base_width=16)
     params, bn = init_state(jax.random.PRNGKey(0), config)
@@ -495,11 +482,11 @@ def test_batch_pad_to_bucket_int_target():
     import jax
     import pytest
 
-    from annonet_tpu.models.segnet import (
+    from annonet_jax.models.segnet import (
         SegNetConfig, fold_batchnorm, init_state,
     )
-    from annonet_tpu.infer.core import TiledInferer
-    from annonet_tpu.infer.tiling import TilingParameters
+    from annonet_jax.infer.core import TiledInferer
+    from annonet_jax.infer.tiling import TilingParameters
 
     config = SegNetConfig(class_count=3, level_count=0, base_width=16)
     params, bn = init_state(jax.random.PRNGKey(0), config)
@@ -521,7 +508,7 @@ def test_batch_pad_to_bucket_int_target():
 
 
 def test_plan_for_counts_geometry():
-    from annonet_tpu.infer.tiling import plan_for_counts
+    from annonet_jax.infer.tiling import plan_for_counts
 
     config = small_config()
     params = TilingParameters(
@@ -553,11 +540,11 @@ def test_plan_for_counts_geometry():
 
 
 def test_plan_autotune_selects_caches_and_matches_pinned(monkeypatch):
-    """Measured plan selection (TPU extension, docs/DESIGN.md par.22):
+    """Measured plan selection (extension, docs/DESIGN.md par.22):
     the first image of a canvas measures candidate plans, later images
     reuse the cached winner, and the output equals a twin inferer pinned
     to the chosen plan exactly."""
-    monkeypatch.setenv("ANNONET_TPU_AUTOTUNE_ITERS", "1")
+    monkeypatch.setenv("ANNONET_AUTOTUNE_ITERS", "1")
     config = small_config()
     params = runtime_net(config)
     rng = np.random.default_rng(1)
@@ -619,7 +606,7 @@ def test_update_params_swaps_weights_without_recompiling():
     path bit-exact; int8 recalibrates like a fresh inferer."""
     import jax
 
-    from annonet_tpu.models.segnet import fold_batchnorm, init_state
+    from annonet_jax.models.segnet import fold_batchnorm, init_state
 
     config = SegNetConfig(class_count=3, level_count=1, base_width=16)
     nets = []

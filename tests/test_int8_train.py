@@ -20,11 +20,11 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-from annonet_tpu.data.crop import CropOptions
-from annonet_tpu.models import SegNetConfig
-from annonet_tpu.models.segnet import apply_train, init_state
-from annonet_tpu.ops.int8_train import int8_conv_ste
-from annonet_tpu.train.trainer import TrainerConfig, make_fused_train_step
+from annonet_jax.data.crop import CropOptions
+from annonet_jax.models import SegNetConfig
+from annonet_jax.models.segnet import apply_train, init_state
+from annonet_jax.ops.int8_train import int8_conv_ste
+from annonet_jax.train.trainer import TrainerConfig, make_fused_train_step
 
 _DN = ("NHWC", "HWIO", "NHWC")
 
@@ -153,7 +153,7 @@ def test_int8_forward_composes_with_remat():
     lab = jnp.zeros((2, 64, 64), jnp.int32)
     wts = jnp.ones((2, 64, 64), jnp.float32)
 
-    from annonet_tpu.ops.loss import weighted_pixel_cross_entropy
+    from annonet_jax.ops.loss import weighted_pixel_cross_entropy
 
     def loss_fn(p):
         logits, _ = apply_train(
@@ -172,9 +172,9 @@ def test_int8_forward_active_under_data_parallel():
     (annonet_train --mesh N --int8-training): without augmentation and
     with sync BN, the DP int8 step equals the single-device int8 step,
     and both differ from the bf16 forward's loss."""
-    from annonet_tpu.parallel.mesh import make_mesh
-    from annonet_tpu.parallel.train import DataParallelTrainer
-    from annonet_tpu.train.trainer import Trainer
+    from annonet_jax.parallel.mesh import make_mesh
+    from annonet_jax.parallel.train import DataParallelTrainer
+    from annonet_jax.train.trainer import Trainer
 
     mc = SegNetConfig(
         class_count=2, level_count=1, base_width=8, compute_dtype="float32"
@@ -202,10 +202,10 @@ def test_qat_trained_net_serves_int8_with_high_agreement():
     (--int8-training), fold BN, deploy through the int8 quantized
     inference runtime — the trained task must be solved and int8 labels
     must agree with the float path (the deployment the flag exists for)."""
-    from annonet_tpu.infer.core import TiledInferer
-    from annonet_tpu.infer.tiling import TilingParameters
-    from annonet_tpu.models.segnet import fold_batchnorm
-    from annonet_tpu.train.trainer import Trainer
+    from annonet_jax.infer.core import TiledInferer
+    from annonet_jax.infer.tiling import TilingParameters
+    from annonet_jax.models.segnet import fold_batchnorm
+    from annonet_jax.train.trainer import Trainer
 
     config = SegNetConfig(class_count=2, level_count=1, base_width=8)
     trainer = Trainer(
@@ -239,3 +239,18 @@ def test_qat_trained_net_serves_int8_with_high_agreement():
     assert acc_f > 0.95, acc_f
     assert acc_q > 0.95, acc_q
     assert agreement > 0.98, agreement
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_int8_conv_sum_feeds_only_a_float32_convert(dtype):
+    """The training forward's int8 conv keeps the form XLA:GPU lowers to
+    one s8 -> f32 cuDNN call: its int32 sum is used only through a
+    float32 convert."""
+    from tests.test_quantized import int8_conv_sum_consumers
+
+    jaxpr = jax.make_jaxpr(lambda a, b: int8_conv_ste(a, b, 1, dtype))(
+        jnp.ones((1, 8, 8, 3), dtype), jnp.ones((3, 3, 3, 4), dtype)
+    )
+    assert int8_conv_sum_consumers(jaxpr) == [
+        ("convert_element_type", jnp.float32)
+    ]

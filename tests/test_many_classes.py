@@ -2,23 +2,23 @@
 anno_classes.json (class index = array position,
 annonet_parse_anno_classes.cpp:79), but most tests run K in {2,3,4}.
 
-K = 17 is chosen adversarially for the TPU layouts: the folded head packs
-K*fold = 136 class-major lanes (> one 128-lane register), the int8 head
-dot gets a non-power-of-two N, and unfold_logits must keep the
-class-major slicing straight past the lane boundary.
+K = 17 is chosen adversarially for the folded layouts: the folded head
+packs K*fold = 136 class-major channels (past a 128-wide boundary), the
+int8 head dot gets a non-power-of-two N, and unfold_logits must keep the
+class-major slicing straight past that boundary.
 """
 
 import jax
 import numpy as np
 import pytest
 
-from annonet_tpu.infer.core import TiledInferer, annonet_infer
-from annonet_tpu.infer.tiling import TilingParameters
-from annonet_tpu.models.folded_runtime import (
+from annonet_jax.infer.core import TiledInferer, annonet_infer
+from annonet_jax.infer.tiling import TilingParameters
+from annonet_jax.models.folded_runtime import (
     apply_runtime_folded,
     fold_runtime_params,
 )
-from annonet_tpu.models.segnet import (
+from annonet_jax.models.segnet import (
     SegNetConfig,
     apply_runtime,
     fold_batchnorm,
@@ -122,8 +122,8 @@ def test_int8_agrees_with_float_at_k17():
 
 
 def test_confusion_matrix_formatter_at_k17():
-    from annonet_tpu.classes import AnnoClass
-    from annonet_tpu.infer.evaluation import (
+    from annonet_jax.classes import AnnoClass
+    from annonet_jax.infer.evaluation import (
         format_confusion_matrix,
         new_confusion_matrix,
         update_confusion_matrix_per_pixel,

@@ -12,7 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from annonet_tpu.models import (
+from annonet_jax.models import (
     SegNetConfig,
     apply_runtime,
     apply_train,

@@ -10,7 +10,7 @@ inputs (pool contents, crop decisions, keys) are consistent by
 construction, and the
 2-process x 4-device run computes the same global batches as the
 1-process x 8-device run. The reference has no distributed story at all
-(SURVEY.md §2.3: single process, one GPU) — this is the TPU-native
+(SURVEY.md §2.3: single process, one GPU) — this is the accelerator
 scale-out axis its trainer points at.
 
 These tests spawn real subprocesses (each needs its own JAX runtime) and
@@ -44,15 +44,15 @@ def _env(local_devices: int) -> dict:
     env["XLA_FLAGS"] = (
         f"--xla_force_host_platform_device_count={local_devices}"
     )
-    env["ANNONET_TPU_PLATFORM"] = "cpu"
-    env["ANNONET_TPU_NO_COMPILATION_CACHE"] = "1"
+    env["ANNONET_PLATFORM"] = "cpu"
+    env["ANNONET_NO_COMPILATION_CACHE"] = "1"
     env["PYTHONPATH"] = REPO_ROOT + os.pathsep + env.get("PYTHONPATH", "")
     return env
 
 
 def _train_cmd(data_dir, out_path, sync_path, extra=(), steps=6):
     return [
-        sys.executable, "-m", "annonet_tpu.cli.train",
+        sys.executable, "-m", "annonet_jax.cli.train",
         str(data_dir),
         "--max-total-steps", str(steps),
         "-b", "8",
@@ -109,7 +109,7 @@ def _run_pair(data, outs, syncs, steps=6, timeout=600, extra=()):
 
 
 def _assert_artifacts_close(path_a, path_b):
-    from annonet_tpu import serialization
+    from annonet_jax import serialization
 
     p_a, cfg_a, json_a, factor_a = serialization.load_model(str(path_a))
     p_b, cfg_b, json_b, factor_b = serialization.load_model(str(path_b))
@@ -253,7 +253,7 @@ def test_multihost_int8_training_and_validation(tmp_path):
 def test_autotune_refuses_coordinator(capsys):
     """Probe subprocesses would wait forever for peers that never probe;
     the autotuner rejects --coordinator (both spellings) with guidance."""
-    from annonet_tpu.cli.autotune import main
+    from annonet_jax.cli.autotune import main
 
     rc = main(["/nonexistent", "--coordinator", "127.0.0.1:1"])
     assert rc == 2
@@ -267,10 +267,10 @@ def test_resume_state_vector_distinguishes_same_step_checkpoints(tmp_path):
     """(step, LR) can coincide across unrelated runs — the pre-check
     vector includes the weights fingerprint recorded at save time, and
     distinct sentinels for missing vs unreadable checkpoints."""
-    from annonet_tpu import serialization
-    from annonet_tpu.cli.train import _resume_state_vector
-    from annonet_tpu.models.segnet import SegNetConfig
-    from annonet_tpu.train.trainer import Trainer, TrainerConfig
+    from annonet_jax import serialization
+    from annonet_jax.cli.train import _resume_state_vector
+    from annonet_jax.models.segnet import SegNetConfig
+    from annonet_jax.train.trainer import Trainer, TrainerConfig
 
     mc = SegNetConfig(
         class_count=2, level_count=0, base_width=4, compute_dtype="float32"
@@ -300,7 +300,7 @@ def test_resume_state_vector_distinguishes_same_step_checkpoints(tmp_path):
 def test_coordinator_requires_mesh(tmp_path):
     """--coordinator without --mesh is a setup error (exit 1), before any
     distributed initialization is attempted."""
-    from annonet_tpu.cli.train import main
+    from annonet_jax.cli.train import main
 
     (tmp_path / "anno_classes.json").write_text("")
     rc = main([
@@ -312,7 +312,7 @@ def test_coordinator_requires_mesh(tmp_path):
 
 def test_mesh_must_cover_global_devices():
     """make_cli_mesh(multiprocess=True) rejects a partial global mesh."""
-    from annonet_tpu.cli.common import make_cli_mesh
+    from annonet_jax.cli.common import make_cli_mesh
 
     with pytest.raises(ValueError, match="global device count"):
         make_cli_mesh(3, multiprocess=True)  # 8 virtual devices visible
@@ -513,10 +513,10 @@ def test_peer_failure_classifier_measured_phrases_only():
     HTTP connection refused) must NOT be diagnosed as a dead peer: that
     would os._exit past the rank-local abort path that deliberately
     unblocks peers (advisor finding, round 4)."""
-    from annonet_tpu.cli.common import peer_failure_diagnosis
+    from annonet_jax.cli.common import peer_failure_diagnosis
 
     classified = [
-        # the measured mid-training survivor error (docs/ROUND4.md)
+        # the measured mid-training survivor error
         "Gloo context initialization failed: DEADLINE_EXCEEDED: "
         "GetKeyValue() timed out",
         # coordination-service heartbeat verdict
@@ -552,12 +552,12 @@ def test_peer_failure_exit_code_is_one_value():
     value)."""
     import inspect
 
-    from annonet_tpu.cli import common
+    from annonet_jax.cli import common
 
     assert common.PEER_FAILURE_EXIT_CODE == 3
     # no call site may override exit_code anymore
-    import annonet_tpu.cli.infer as infer_mod
-    import annonet_tpu.cli.train as train_mod
+    import annonet_jax.cli.infer as infer_mod
+    import annonet_jax.cli.train as train_mod
 
     for mod in (train_mod, infer_mod):
         src = inspect.getsource(mod)
@@ -571,7 +571,7 @@ def test_peer_failure_exit_code_is_one_value():
 
 @pytest.mark.slow
 def test_supervised_recovery_drill_end_to_end(tmp_path):
-    """The full recovery story, supervised (VERDICT round-4 item 7):
+    """The full recovery story, supervised:
 
       rank 1 dies mid-PLATEAU-DRIVEN training
         -> rank 0 exits bounded with the classified diagnosis and THE
@@ -624,7 +624,7 @@ def test_supervised_recovery_drill_end_to_end(tmp_path):
             # tight checkpoint period so the kill happens with a genuine
             # MID-RUN checkpoint on disk (the reference period is 10 min,
             # annonet_train_main.cpp:403 — far longer than this test)
-            env["ANNONET_TPU_SYNC_INTERVAL_SECONDS"] = "2"
+            env["ANNONET_SYNC_INTERVAL_SECONDS"] = "2"
             log = tmp_path / f"drill{pid}_{port}.log"
             handle = open(log, "w")
             procs.append(subprocess.Popen(
@@ -700,7 +700,7 @@ def test_supervised_recovery_drill_end_to_end(tmp_path):
     import io
     from contextlib import redirect_stdout
 
-    from annonet_tpu.cli.infer import main as infer_main
+    from annonet_jax.cli.infer import main as infer_main
 
     report = tmp_path / "report.json"
     buf = io.StringIO()

@@ -31,8 +31,8 @@ REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def _write_model(path, classes_json):
     import jax
 
-    from annonet_tpu import serialization
-    from annonet_tpu.models.segnet import (
+    from annonet_jax import serialization
+    from annonet_jax.models.segnet import (
         SegNetConfig, fold_batchnorm, init_state,
     )
 
@@ -44,7 +44,7 @@ def _write_model(path, classes_json):
 
 def _infer_cmd(data_dir, model_path, report_path, extra=()):
     return [
-        sys.executable, "-m", "annonet_tpu.cli.infer",
+        sys.executable, "-m", "annonet_jax.cli.infer",
         str(data_dir),
         "--model", str(model_path),
         "--tile-max-width", "64", "--tile-max-height", "64",
@@ -161,7 +161,7 @@ def _write_exposure_dataset(root, brightness_by_image, size=48, seed=7):
     from PIL import Image
 
     from tests.test_end_to_end import ANNO_CLASSES
-    from annonet_tpu.classes import anno_classes_to_json
+    from annonet_jax.classes import anno_classes_to_json
 
     rng = np.random.default_rng(seed)
     (root / "anno_classes.json").write_text(
@@ -261,8 +261,8 @@ def calibration_setup(tmp_path_factory):
 
 
 def test_merged_calibration_is_max_over_all_shards(calibration_setup):
-    from annonet_tpu import serialization
-    from annonet_tpu.models.segnet import SegNetConfig
+    from annonet_jax import serialization
+    from annonet_jax.models.segnet import SegNetConfig
 
     _, config, _, _ = serialization.load_model(
         str(calibration_setup["model"])

@@ -5,8 +5,8 @@ import os
 import numpy as np
 import pytest
 
-from annonet_tpu.classes import IGNORE_LABEL
-from annonet_tpu import native
+from annonet_jax.classes import IGNORE_LABEL
+from annonet_jax import native
 
 
 requires_native = pytest.mark.skipif(
@@ -21,18 +21,18 @@ def test_ccl_matches_python_fallback():
         labels = rng.integers(0, 4, size=(40, 50)).astype(np.uint16)
         labels[rng.random(labels.shape) < 0.1] = IGNORE_LABEL
 
-        from annonet_tpu.ops import blobs as blobs_mod
+        from annonet_jax.ops import blobs as blobs_mod
 
         native_blobs, native_count = native.label_connected_blobs_native(
             labels, True, True
         )
-        os.environ["ANNONET_TPU_NO_NATIVE"] = "1"
+        os.environ["ANNONET_NO_NATIVE"] = "1"
         try:
             py_blobs, py_count = blobs_mod.label_connected_blobs(
                 labels, zero_is_background=True, ignore_is_background=True
             )
         finally:
-            del os.environ["ANNONET_TPU_NO_NATIVE"]
+            del os.environ["ANNONET_NO_NATIVE"]
 
         assert native_count == py_count
         # same partition: blob ids must be a bijection of each other
@@ -49,16 +49,16 @@ def test_extract_crop_matches_python_fallback():
     image = rng.integers(0, 256, size=(30, 20, 3), dtype=np.uint8)
     labels = rng.integers(0, 3, size=(30, 20)).astype(np.uint16)
 
-    from annonet_tpu.data import crop as crop_mod
+    from annonet_jax.data import crop as crop_mod
 
     for rect in [(-5, -7, 10, 8), (5, 5, 14, 14), (10, 25, 40, 35),
                  (-3, 28, 25, 33)]:
         native_img, native_lab = crop_mod.extract_crop(image, labels, rect)
-        os.environ["ANNONET_TPU_NO_NATIVE"] = "1"
+        os.environ["ANNONET_NO_NATIVE"] = "1"
         try:
             py_img, py_lab = crop_mod.extract_crop(image, labels, rect)
         finally:
-            del os.environ["ANNONET_TPU_NO_NATIVE"]
+            del os.environ["ANNONET_NO_NATIVE"]
         np.testing.assert_array_equal(native_img, py_img)
         np.testing.assert_array_equal(native_lab, py_lab)
 
@@ -131,7 +131,7 @@ def test_native_decode_errors(tmp_path):
 @requires_native
 def test_native_resize_matches_numpy_fallback():
     rng = np.random.default_rng(2)
-    from annonet_tpu.data import sample as sample_mod
+    from annonet_jax.data import sample as sample_mod
 
     for shape, target in [((31, 45, 3), (17, 23)), ((64, 64, 1), (96, 128)),
                           ((10, 10), (7, 5))]:
@@ -139,13 +139,13 @@ def test_native_resize_matches_numpy_fallback():
         native_out = sample_mod.resize_image_bilinear(
             image, target[1], target[0]
         )
-        os.environ["ANNONET_TPU_NO_NATIVE"] = "1"
+        os.environ["ANNONET_NO_NATIVE"] = "1"
         try:
             py_out = sample_mod.resize_image_bilinear(
                 image, target[1], target[0]
             )
         finally:
-            del os.environ["ANNONET_TPU_NO_NATIVE"]
+            del os.environ["ANNONET_NO_NATIVE"]
         assert native_out.shape == py_out.shape
         # float rounding at the .5 boundary may differ by 1 LSB
         assert np.abs(

@@ -4,11 +4,11 @@ import jax
 import numpy as np
 import pytest
 
-from annonet_tpu.data.crop import CropOptions
-from annonet_tpu.models.segnet import SegNetConfig
-from annonet_tpu.parallel.mesh import make_mesh
-from annonet_tpu.parallel.train import DataParallelTrainer, make_dp_train_step
-from annonet_tpu.train.trainer import Trainer, TrainerConfig
+from annonet_jax.data.crop import CropOptions
+from annonet_jax.models.segnet import SegNetConfig
+from annonet_jax.parallel.mesh import make_mesh
+from annonet_jax.parallel.train import DataParallelTrainer, make_dp_train_step
+from annonet_jax.train.trainer import Trainer, TrainerConfig
 
 
 def test_mesh_uses_all_devices():
@@ -89,9 +89,9 @@ def test_dp_step_trains():
 
 
 def test_tile_parallel_inference_matches_single_device():
-    from annonet_tpu.infer.core import TiledInferer, annonet_infer
-    from annonet_tpu.infer.tiling import TilingParameters
-    from annonet_tpu.models.segnet import fold_batchnorm, init_state
+    from annonet_jax.infer.core import TiledInferer, annonet_infer
+    from annonet_jax.infer.tiling import TilingParameters
+    from annonet_jax.models.segnet import fold_batchnorm, init_state
 
     mc = SegNetConfig(
         class_count=3, level_count=1, base_width=4, compute_dtype="float32"

@@ -7,21 +7,21 @@ import os
 import numpy as np
 import pytest
 
-from annonet_tpu.classes import IGNORE_LABEL, AnnoClass
-from annonet_tpu.data.cache import SharedLruCache
-from annonet_tpu.data.crop import (
+from annonet_jax.classes import IGNORE_LABEL, AnnoClass
+from annonet_jax.data.cache import SharedLruCache
+from annonet_jax.data.crop import (
     CropOptions,
     centered_rect,
     extract_crop,
     random_rect_containing_point,
     randomly_crop_sample,
 )
-from annonet_tpu.data.dataset import ImageFilenames
-from annonet_tpu.data.filters import ignore_classes, ignore_large_nonzero_regions
-from annonet_tpu.data.pipeline import CropPipeline, RegionFilterOptions
-from annonet_tpu.data.sample import Sample
-from annonet_tpu.data.codec import labeled_points_by_class
-from annonet_tpu.ops.blobs import label_connected_blobs
+from annonet_jax.data.dataset import ImageFilenames
+from annonet_jax.data.filters import ignore_classes, ignore_large_nonzero_regions
+from annonet_jax.data.pipeline import CropPipeline, RegionFilterOptions
+from annonet_jax.data.sample import Sample
+from annonet_jax.data.codec import labeled_points_by_class
+from annonet_jax.ops.blobs import label_connected_blobs
 
 
 def make_sample(label_image, image=None):
@@ -212,7 +212,7 @@ def test_augment_noop_passthrough():
     labels = np.random.default_rng(1).integers(
         0, 3, size=(2, 8, 8)
     ).astype(np.int32)
-    from annonet_tpu.ops.augment import augment_batch
+    from annonet_jax.ops.augment import augment_batch
 
     out_img, out_lab = augment_batch(
         jax.random.PRNGKey(0), images, labels
@@ -230,7 +230,7 @@ def test_augment_flip_consistency():
     base = np.arange(h * w, dtype=np.int32).reshape(1, h, w)
     images = base[..., None].astype(np.uint8)  # truncated is fine
     labels = base.copy()
-    from annonet_tpu.ops.augment import augment_batch
+    from annonet_jax.ops.augment import augment_batch
 
     flipped_any = False
     for seed in range(8):
@@ -257,7 +257,7 @@ def test_augment_brightness_and_noise_bounds():
 
     images = np.full((2, 8, 8, 3), 128, dtype=np.uint8)
     labels = np.zeros((2, 8, 8), dtype=np.int32)
-    from annonet_tpu.ops.augment import augment_batch
+    from annonet_jax.ops.augment import augment_batch
 
     out_img, _ = augment_batch(
         jax.random.PRNGKey(5),
@@ -280,7 +280,7 @@ def test_augment_brightness_and_noise_bounds():
 def tiny_dataset(tmp_path):
     from PIL import Image
 
-    from annonet_tpu.classes import default_anno_classes
+    from annonet_jax.classes import default_anno_classes
 
     anno_classes = default_anno_classes()
     rng = np.random.default_rng(0)
@@ -324,7 +324,7 @@ def test_crop_pipeline_minibatch(tiny_dataset):
 def test_crop_pipeline_warning_on_empty_labels(tmp_path):
     from PIL import Image
 
-    from annonet_tpu.classes import default_anno_classes
+    from annonet_jax.classes import default_anno_classes
 
     anno_classes = default_anno_classes()
     img = np.zeros((16, 16, 3), dtype=np.uint8)
@@ -350,8 +350,8 @@ def test_crop_pipeline_warning_on_empty_labels(tmp_path):
 
 
 def test_fused_train_step_runs(tiny_dataset):
-    from annonet_tpu.models.segnet import SegNetConfig
-    from annonet_tpu.train.trainer import Trainer, TrainerConfig
+    from annonet_jax.models.segnet import SegNetConfig
+    from annonet_jax.train.trainer import Trainer, TrainerConfig
 
     files, anno_classes = tiny_dataset
     opts = CropOptions(
@@ -397,8 +397,8 @@ def test_batched_extraction_matches_per_crop_path(tiny_dataset):
 def test_batched_extraction_python_fallback(tiny_dataset, monkeypatch):
     """With the native module disabled the decision mode falls back to the
     per-crop Python extraction and still matches."""
-    monkeypatch.setenv("ANNONET_TPU_NO_NATIVE", "1")
-    import annonet_tpu.native as native
+    monkeypatch.setenv("ANNONET_NO_NATIVE", "1")
+    import annonet_jax.native as native
 
     monkeypatch.setattr(native, "_lib", None)
     monkeypatch.setattr(native, "_load_failed", True)
@@ -417,8 +417,8 @@ def test_batched_extraction_python_fallback(tiny_dataset, monkeypatch):
 def test_extract_crops_batch_native_vs_single():
     """The native batch call equals per-crop extract_crop, including
     out-of-bounds rects (replicate/ignore padding) and multi-threading."""
-    from annonet_tpu.data.crop import extract_crop
-    from annonet_tpu.native import extract_crops_batch_native, get_lib
+    from annonet_jax.data.crop import extract_crop
+    from annonet_jax.native import extract_crops_batch_native, get_lib
 
     if get_lib() is None:
         import pytest
@@ -455,7 +455,7 @@ def test_pipeline_error_propagates_in_decision_mode(tmp_path):
     pipeline shutting down cleanly afterwards."""
     from PIL import Image
 
-    from annonet_tpu.classes import default_anno_classes
+    from annonet_jax.classes import default_anno_classes
 
     anno_classes = default_anno_classes()
     rng = np.random.default_rng(0)
@@ -538,7 +538,7 @@ def test_pin_budget_fallback_throughput_under_stress(tmp_path):
 
     from PIL import Image
 
-    from annonet_tpu.classes import default_anno_classes
+    from annonet_jax.classes import default_anno_classes
 
     anno_classes = default_anno_classes()
     rng = np.random.default_rng(1)

@@ -23,13 +23,13 @@ the ones the batched device path additionally relies on):
 import numpy as np
 import pytest
 
-from annonet_tpu.infer.tiling import (
+from annonet_jax.infer.tiling import (
     TilingParameters,
     plan_tiles,
     ramp_weights,
     weight_sum_factors,
 )
-from annonet_tpu.models.segnet import (
+from annonet_jax.models.segnet import (
     SegNetConfig,
     recommended_input_dimension,
     required_input_dimension,

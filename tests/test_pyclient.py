@@ -1,4 +1,4 @@
-"""annonet_tpu.client.ServeClient vs a live in-process annonet_serve —
+"""annonet_jax.client.ServeClient vs a live in-process annonet_serve —
 the Python sidecar analog of tests/test_client.py's C embedding client.
 
 Pins: healthz/model metadata, zero-codec raw inference equal to the
@@ -18,11 +18,11 @@ import pytest
 
 import jax
 
-from annonet_tpu import serialization
-from annonet_tpu.classes import anno_classes_to_json, default_anno_classes
-from annonet_tpu.cli.serve import build_parser, make_server
-from annonet_tpu.client import ServeClient, ServeError
-from annonet_tpu.models.segnet import SegNetConfig, fold_batchnorm, init_state
+from annonet_jax import serialization
+from annonet_jax.classes import anno_classes_to_json, default_anno_classes
+from annonet_jax.cli.serve import build_parser, make_server
+from annonet_jax.client import ServeClient, ServeError
+from annonet_jax.models.segnet import SegNetConfig, fold_batchnorm, init_state
 
 
 @pytest.fixture(scope="module")

@@ -12,20 +12,20 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from annonet_tpu.models.segnet import SegNetConfig, fold_batchnorm, init_state
-from annonet_tpu.models.folded_runtime import (
+from annonet_jax.models.segnet import SegNetConfig, fold_batchnorm, init_state
+from annonet_jax.models.folded_runtime import (
     apply_folded_split,
     fold_runtime_params,
     split_folded,
 )
-from annonet_tpu.models.quantized_runtime import (
+from annonet_jax.models.quantized_runtime import (
     apply_folded_int8,
     collect_calibration,
     quantize_folded,
     quantize_input,
 )
-from annonet_tpu.infer.core import TiledInferer, annonet_infer
-from annonet_tpu.infer.tiling import TilingParameters
+from annonet_jax.infer.core import TiledInferer, annonet_infer
+from annonet_jax.infer.tiling import TilingParameters
 
 
 def _quantized_setup(config, image_shape, seed=0):
@@ -176,17 +176,13 @@ def test_quantize_option_validation():
         TiledInferer(runtime, config, quantize="int4")
     with pytest.raises(ValueError):
         TiledInferer(runtime, config, quantize="int8", use_folded_net=False)
-    with pytest.raises(ValueError):
-        TiledInferer(
-            runtime, config, quantize="int8", use_pallas_conv=True
-        )
 
 
 def test_batched_inference_equals_per_image():
     """infer_arrays_batch / annonet_infer_batch: M same-size images in one
     device program, per-image results EXACTLY equal the single-image path
     (bf16 and int8), including detection seeds and the blob veto."""
-    from annonet_tpu.infer.core import annonet_infer_batch
+    from annonet_jax.infer.core import annonet_infer_batch
 
     config = SegNetConfig(class_count=3, level_count=0, base_width=16)
     params, bn = init_state(jax.random.PRNGKey(0), config)
@@ -212,14 +208,6 @@ def test_batched_inference_equals_per_image():
             inf.infer_arrays_batch(images[0])
         with pytest.raises(ValueError):
             inf.infer_arrays_batch(images[:0])
-
-    # M=3 above already exercises the power-of-two bucketing (padded to 4
-    # internally, sliced back); pallas blend rejects multi-image batches
-    pall = TiledInferer(
-        runtime, config, tiling, use_folded_net=False, use_pallas_blend=True
-    )
-    with pytest.raises(ValueError):
-        pall.infer_arrays_batch(images)
 
 
 def test_calibration_images_accumulate_and_defer_freeze():
@@ -362,10 +350,10 @@ def test_blend_dtype_default_and_override():
 
 
 def test_calibration_export_load_roundtrip(tmp_path):
-    """Persisted calibration (TPU-native extension): export after freeze,
+    """Persisted calibration (extension beyond the reference): export after freeze,
     load into a fresh inferer -> identical int8 labels from the FIRST
     image on, with no runtime calibration pass; config mismatch rejected."""
-    from annonet_tpu import serialization
+    from annonet_jax import serialization
 
     config = SegNetConfig(class_count=3, level_count=1, base_width=16)
     params, bn = init_state(jax.random.PRNGKey(0), config)
@@ -418,7 +406,7 @@ def test_calibration_export_load_roundtrip(tmp_path):
 def test_calibration_weights_fingerprint_rejects_retrained_model(tmp_path):
     """Same architecture, different trained weights -> load refuses
     (activation ranges are weight-dependent)."""
-    from annonet_tpu import serialization
+    from annonet_jax import serialization
 
     config = SegNetConfig(class_count=3, level_count=1, base_width=16)
     params_a, bn_a = init_state(jax.random.PRNGKey(0), config)
@@ -448,7 +436,7 @@ def test_calibration_weights_fingerprint_rejects_retrained_model(tmp_path):
 def test_head_dot_and_conv_agree_exactly(monkeypatch):
     """The 1x1 int8 head as dot_general vs the conv emitter: identical
     integer math, so labels must agree bit-for-bit (docs/DESIGN.md
-    par.24; also verified on TPU hardware at 2048^2 — 0 px differ)."""
+    par.24)."""
     config = SegNetConfig(class_count=3, level_count=1, base_width=16)
     params, bn = init_state(jax.random.PRNGKey(0), config)
     runtime = fold_batchnorm(params, bn, config)
@@ -458,7 +446,7 @@ def test_head_dot_and_conv_agree_exactly(monkeypatch):
 
     out = {}
     for flag in ("0", "1"):
-        monkeypatch.setenv("ANNONET_TPU_HEAD_DOT", flag)
+        monkeypatch.setenv("ANNONET_HEAD_DOT", flag)
         inferer = TiledInferer(runtime, config, tiling, quantize="int8")
         out[flag] = annonet_infer(inferer, image)
     np.testing.assert_array_equal(out["0"], out["1"])
@@ -466,7 +454,7 @@ def test_head_dot_and_conv_agree_exactly(monkeypatch):
 
 def test_stem_ycat_agrees_exactly(monkeypatch):
     """The stem as a y-tap-concat (1,3) conv vs the plain 3x3 emitter
-    (ANNONET_TPU_STEM_YCAT=1, quantized_runtime.ycat_stem_qspec): int32
+    (ANNONET_STEM_YCAT=1, quantized_runtime.ycat_stem_qspec): int32
     accumulations of the same integer products, so logits and labels must
     agree bit-for-bit — including the grayscale :pad4 stem and image
     heights where the tile grid clamps tiles flush to the edge."""
@@ -485,15 +473,13 @@ def test_stem_ycat_agrees_exactly(monkeypatch):
 
         out = {}
         for flag in ("0", "1"):
-            monkeypatch.setenv("ANNONET_TPU_STEM_YCAT", flag)
+            monkeypatch.setenv("ANNONET_STEM_YCAT", flag)
             inferer = TiledInferer(runtime, config, tiling, quantize="int8")
             out[flag] = annonet_infer(inferer, image)
             if flag == "1":
                 # the rewrite must actually be in the executed spec
                 rewritten = [
-                    qspec
-                    for key, (qspec, _) in inferer._mosaic_q_cache.items()
-                    if key[1] == "ycat"
+                    qspec for (qspec, _) in inferer._ycat_cache.values()
                 ]
                 assert rewritten and any(
                     k.split(":")[0] == "qy1" for k in rewritten[0]
@@ -501,19 +487,64 @@ def test_stem_ycat_agrees_exactly(monkeypatch):
         np.testing.assert_array_equal(out["0"], out["1"])
 
 
-def test_stem_ycat_composes_with_mosaicized_spec():
-    """ycat_stem_qspec applies after mosaicize_qspec: the :pad4 stem is
-    never Mosaic-eligible, so the composed spec has the qy1 stem AND the
-    Mosaic entries untouched."""
-    from annonet_tpu.models.quantized_runtime import ycat_stem_qspec
-    from annonet_tpu.ops.int8_conv_mosaic import mosaicize_qspec
+def test_stem_ycat_rewrites_only_the_stem():
+    """ycat_stem_qspec rewrites the stem into a (1,3) kernel and leaves
+    every later entry of the int8 spec as it was."""
+    from annonet_jax.models.quantized_runtime import ycat_stem_qspec
 
     config = SegNetConfig(class_count=3, level_count=1, base_width=16)
     _, _, (qspec, qarrays), _ = _quantized_setup(config, (1, 64, 64, 3))
-    mspec, marrays = mosaicize_qspec(qspec, qarrays)
-    yspec, yarrays = ycat_stem_qspec(mspec, marrays)
+    yspec, yarrays = ycat_stem_qspec(qspec, qarrays)
     assert yspec[0].split(":")[0] in ("qy1",), yspec
     # everything after the stem is unchanged by the ycat rewrite
-    assert yspec[1:] == tuple(mspec[1:])
+    assert yspec[1:] == tuple(qspec[1:])
+    assert all(a is b for a, b in zip(yarrays[1:], qarrays[1:]))
     kh, kw, cin, cout = np.asarray(yarrays[0][0]).shape
     assert (kh, kw) == (1, 3) and cin % 3 == 0
+
+
+def int8_conv_sum_consumers(closed_jaxpr) -> list:
+    """How the program uses the int32 sum of each int8 x int8 conv, in a
+    jaxpr and the jaxprs nested in it: (primitive, dtype) per use, or
+    ("output", dtype) where the sum leaves its jaxpr."""
+    uses = []
+
+    def walk(jaxpr):
+        for i, eqn in enumerate(jaxpr.eqns):
+            for value in eqn.params.values():
+                sub = getattr(value, "jaxpr", value)
+                if hasattr(sub, "eqns"):
+                    walk(sub)
+            if eqn.primitive.name != "conv_general_dilated" or any(
+                v.aval.dtype != jnp.int8 for v in eqn.invars
+            ):
+                continue
+            total = eqn.outvars[0]
+            for later in jaxpr.eqns[i + 1:]:
+                if any(v is total for v in later.invars):
+                    uses.append((later.primitive.name,
+                                 later.outvars[0].aval.dtype))
+            if any(v is total for v in jaxpr.outvars):
+                uses.append(("output", total.aval.dtype))
+
+    walk(closed_jaxpr.jaxpr)
+    return uses
+
+
+@pytest.mark.parametrize("head_dot", ["1", "0"])
+def test_int8_conv_sums_feed_only_a_float32_convert(monkeypatch, head_dot):
+    """XLA:GPU lowers an integer conv to cuDNN only with an s8 or f32
+    output, so the int32 sum of every int8 conv must be used only through
+    a float32 convert (which XLA folds into the cuDNN call)."""
+    monkeypatch.setenv("ANNONET_HEAD_DOT", head_dot)
+    config = SegNetConfig(class_count=3, level_count=2, base_width=16)
+    _, (fold0, _spec, _arrays), (qspec, qarrays), x = _quantized_setup(
+        config, (1, 64, 64, 3)
+    )
+    jaxpr = jax.make_jaxpr(
+        lambda a, t: apply_folded_int8(a, t, config, fold0=fold0, qspec=qspec)
+    )(qarrays, jnp.asarray(x))
+    uses = int8_conv_sum_consumers(jaxpr)
+    convs = sum(k.startswith("q") and k != "qhead" for k in qspec)
+    assert len(uses) == convs + (head_dot == "0")
+    assert set(uses) == {("convert_element_type", np.dtype("float32"))}

@@ -1,4 +1,4 @@
-"""annonet_serve: in-process HTTP server tests (TPU-native extension).
+"""annonet_serve: in-process HTTP server tests (extension beyond the reference).
 
 Drives the real ThreadingHTTPServer on an ephemeral port with urllib —
 the same request path production clients use.
@@ -16,10 +16,10 @@ import pytest
 
 import jax
 
-from annonet_tpu import serialization
-from annonet_tpu.classes import default_anno_classes, anno_classes_to_json
-from annonet_tpu.cli.serve import build_parser, make_server
-from annonet_tpu.models.segnet import SegNetConfig, fold_batchnorm, init_state
+from annonet_jax import serialization
+from annonet_jax.classes import default_anno_classes, anno_classes_to_json
+from annonet_jax.cli.serve import build_parser, make_server
+from annonet_jax.models.segnet import SegNetConfig, fold_batchnorm, init_state
 
 
 @pytest.fixture(scope="module")
@@ -267,7 +267,7 @@ def test_serve_with_mesh(tmp_path):
             ["--model", model_path, "--port", "0",
              "--tile-max-width", "64", "--tile-max-height", "64"]
         )
-        from annonet_tpu.cli.serve import _ModelService
+        from annonet_jax.cli.serve import _ModelService
 
         single = _ModelService(args1)
         image = single.decode(_png_bytes(80, 80))
@@ -292,7 +292,7 @@ def test_warmup_precompiles_and_rejects_bad_spec(tmp_path, capsys):
         model_path, runtime, config,
         anno_classes_to_json(default_anno_classes()), 1.0,
     )
-    from annonet_tpu.cli.serve import _ModelService, _warmup, build_parser
+    from annonet_jax.cli.serve import _ModelService, _warmup, build_parser
 
     args = build_parser().parse_args(
         ["--model", model_path, "--port", "0",
@@ -309,41 +309,6 @@ def test_warmup_precompiles_and_rejects_bad_spec(tmp_path, capsys):
         _warmup(service, ["72by80"])
     with pytest.raises(RuntimeError, match="bad --warmup size"):
         _warmup(service, ["0x80"])
-
-
-def test_serve_int8_mosaic_flag_matches_plain_int8(tmp_path, monkeypatch):
-    """ANNONET_TPU_MOSAIC_INT8=1 through the serving stack == the plain
-    int8 server bit-for-bit (the Mosaic rewrite only reschedules the
-    convs — ops/int8_conv_mosaic.py)."""
-    model_path = str(tmp_path / "annonet.dnn")
-    config = SegNetConfig(class_count=3, level_count=1, base_width=16)
-    params, bn = init_state(jax.random.PRNGKey(5), config)
-    runtime = fold_batchnorm(params, bn, config)
-    serialization.save_model(
-        model_path, runtime, config,
-        anno_classes_to_json(default_anno_classes()), 1.0,
-    )
-    from annonet_tpu.cli.serve import _ModelService
-
-    argv = ["--model", model_path, "--port", "0", "--quantize", "int8",
-            "--tile-max-width", "64", "--tile-max-height", "64"]
-    png = _png_bytes(96, 96, seed=7)
-
-    def run(flag):
-        monkeypatch.setenv("ANNONET_TPU_MOSAIC_INT8", flag)
-        # the 64-px test tiles' folded width is never in MOSAIC_FAST_WB;
-        # force the rewrite so the Mosaic path is what actually runs
-        monkeypatch.setenv("ANNONET_TPU_MOSAIC_FORCE", "1")
-        service = _ModelService(build_parser().parse_args(argv))
-        image = service.decode(png)
-        out = None
-        for _ in range(2):  # calibration image, then the frozen int8 net
-            out = service.infer(
-                image, service.default_gains, service.default_detection
-            )
-        return out
-
-    np.testing.assert_array_equal(run("0"), run("1"))
 
 
 def test_stats_endpoint_reports_latency_percentiles(server_url):
@@ -365,7 +330,7 @@ def test_warmup_does_not_calibrate_int8_on_synthetic_gray(tmp_path, capsys):
     freeze activation scales on the flat gray warm-up image (that would
     silently clip every real request); calibration belongs to the first
     real image."""
-    from annonet_tpu.cli.serve import _ModelService, _warmup
+    from annonet_jax.cli.serve import _ModelService, _warmup
 
     model_path = str(tmp_path / "annonet.dnn")
     config = SegNetConfig(class_count=3, level_count=0, base_width=16)
@@ -444,9 +409,9 @@ def test_reload_hot_swaps_to_retrained_model(tmp_path):
             after = np.frombuffer(r.read(), dtype="<u2").reshape(80, 80)
 
         # the new model's labels match a fresh local inferer on model B
-        from annonet_tpu.infer.core import TiledInferer, annonet_infer
-        from annonet_tpu.infer.tiling import TilingParameters
-        from annonet_tpu.models.segnet import required_input_dimension
+        from annonet_jax.infer.core import TiledInferer, annonet_infer
+        from annonet_jax.infer.tiling import TilingParameters
+        from annonet_jax.models.segnet import required_input_dimension
 
         ov = required_input_dimension(config_b)
         local = TiledInferer(
@@ -498,9 +463,9 @@ def test_reload_stale_calibration_needs_recalibrate(tmp_path):
     """A retrained artifact fails fingerprint-checked --calibration reload
     (409, old model keeps serving); ?recalibrate=1 drops the file and
     recalibrates at runtime."""
-    from annonet_tpu.infer.core import TiledInferer
-    from annonet_tpu.infer.tiling import TilingParameters
-    from annonet_tpu.models.segnet import required_input_dimension
+    from annonet_jax.infer.core import TiledInferer
+    from annonet_jax.infer.tiling import TilingParameters
+    from annonet_jax.models.segnet import required_input_dimension
 
     model_path = str(tmp_path / "annonet.dnn")
     calib_path = str(tmp_path / "calib.npz")
@@ -742,7 +707,7 @@ def test_device_stall_indicator(server_url):
         assert "annonet_device_stalled 1" in body
         # both embedding clients keep working against the 503: the Python
         # sidecar client returns the payload (callers read status)...
-        from annonet_tpu.client import ServeClient
+        from annonet_jax.client import ServeClient
 
         host, port = url.rsplit("//", 1)[1].split(":")
         payload = ServeClient(host, int(port), timeout=30).healthz()
@@ -765,7 +730,7 @@ def test_device_sections_cover_all_request_paths():
     and the reload fast-path weight swap."""
     import inspect
 
-    from annonet_tpu.cli import serve as serve_mod
+    from annonet_jax.cli import serve as serve_mod
 
     src = inspect.getsource(serve_mod._ModelService)
     assert src.count("with self._device_section(") >= 3
@@ -830,7 +795,7 @@ def test_max_rss_guard_turns_health_red(tmp_path):
         model_path, runtime, config,
         anno_classes_to_json(default_anno_classes()), 1.0,
     )
-    from annonet_tpu.cli.serve import (
+    from annonet_jax.cli.serve import (
         _ModelService, _process_rss_mb, build_parser,
     )
 
@@ -865,12 +830,12 @@ def test_serve_reference_blend_semantics_flag(tmp_path):
     "Documented behavioral deviations")."""
     import jax
 
-    from annonet_tpu import serialization
-    from annonet_tpu.classes import (
+    from annonet_jax import serialization
+    from annonet_jax.classes import (
         anno_classes_to_json,
         default_anno_classes,
     )
-    from annonet_tpu.models.segnet import (
+    from annonet_jax.models.segnet import (
         SegNetConfig,
         fold_batchnorm,
         init_state,
@@ -887,7 +852,7 @@ def test_serve_reference_blend_semantics_flag(tmp_path):
         model_path, runtime, config,
         anno_classes_to_json(default_anno_classes()), 1.0,
     )
-    from annonet_tpu.cli.serve import _ModelService, build_parser
+    from annonet_jax.cli.serve import _ModelService, build_parser
 
     for flag, expected in (([], False),
                            (["--reference-blend-semantics"], True)):

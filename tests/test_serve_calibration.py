@@ -1,7 +1,7 @@
 """annonet_serve GET /calibration: download the live int8 calibration.
 
-The export half of the reproducible-deployment loop (TPU-native
-extension; the reference has no serving analog — its closest surface is
+The export half of the reproducible-deployment loop (an extension
+beyond the reference; the reference has no serving analog — its closest surface is
 the annonet.dnn artifact round trip, annonet_train_main.cpp:557-565):
 an int8 server with no pinned --calibration freezes activation scales on
 its first real images; GET /calibration returns exactly those maxima in
@@ -19,10 +19,10 @@ import jax
 import numpy as np
 import pytest
 
-from annonet_tpu import serialization
-from annonet_tpu.classes import anno_classes_to_json, default_anno_classes
-from annonet_tpu.cli.serve import build_parser, make_server
-from annonet_tpu.models.segnet import SegNetConfig, fold_batchnorm, init_state
+from annonet_jax import serialization
+from annonet_jax.classes import anno_classes_to_json, default_anno_classes
+from annonet_jax.cli.serve import build_parser, make_server
+from annonet_jax.models.segnet import SegNetConfig, fold_batchnorm, init_state
 
 from tests.test_serve import _png_bytes, _post
 
@@ -120,7 +120,7 @@ def test_calibration_requires_int8_server(tmp_path):
 
 
 def test_serve_client_calibration_method(int8_server, tmp_path):
-    from annonet_tpu.client import ServeClient, ServeError
+    from annonet_jax.client import ServeClient, ServeError
 
     url, service = int8_server
     host, port = url.removeprefix("http://").rsplit(":", 1)
@@ -139,7 +139,7 @@ def test_serve_client_calibration_method(int8_server, tmp_path):
 
 
 def test_serve_client_calibration_error_payload(tmp_path):
-    from annonet_tpu.client import ServeClient, ServeError
+    from annonet_jax.client import ServeClient, ServeError
 
     url, server, _service = _start_server(tmp_path)
     host, port = url.removeprefix("http://").rsplit(":", 1)

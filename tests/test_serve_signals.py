@@ -15,9 +15,9 @@ import pytest
 
 import jax
 
-from annonet_tpu import serialization
-from annonet_tpu.classes import anno_classes_to_json, default_anno_classes
-from annonet_tpu.models.segnet import SegNetConfig, fold_batchnorm, init_state
+from annonet_jax import serialization
+from annonet_jax.classes import anno_classes_to_json, default_anno_classes
+from annonet_jax.models.segnet import SegNetConfig, fold_batchnorm, init_state
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -31,9 +31,9 @@ def test_sigterm_graceful_exit(tmp_path):
         model_path, runtime, config,
         anno_classes_to_json(default_anno_classes()), 1.0,
     )
-    env = dict(os.environ, ANNONET_TPU_PLATFORM="cpu")
+    env = dict(os.environ, ANNONET_PLATFORM="cpu")
     proc = subprocess.Popen(
-        [sys.executable, "-u", "-m", "annonet_tpu.cli.serve",
+        [sys.executable, "-u", "-m", "annonet_jax.cli.serve",
          "--model", model_path, "--port", "0",
          "--tile-max-width", "64", "--tile-max-height", "64"],
         env=env, cwd=_REPO,

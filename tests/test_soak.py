@@ -19,7 +19,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 @pytest.mark.slow
 def test_soak_serve_short():
-    env = dict(os.environ, ANNONET_TPU_PLATFORM="cpu")
+    env = dict(os.environ, ANNONET_PLATFORM="cpu")
     env.pop("JAX_PLATFORMS", None)
     proc = subprocess.run(
         [

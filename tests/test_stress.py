@@ -7,9 +7,9 @@ import threading
 import numpy as np
 import pytest
 
-from annonet_tpu.data.cache import SharedLruCache
-from annonet_tpu.data.crop import CropOptions
-from annonet_tpu.data.pipeline import CropPipeline
+from annonet_jax.data.cache import SharedLruCache
+from annonet_jax.data.crop import CropOptions
+from annonet_jax.data.pipeline import CropPipeline
 
 
 def test_cache_hammering_many_threads():
@@ -48,7 +48,7 @@ def test_pipeline_sustained_throughput(tmp_path):
     """Many threads, tiny cache, sustained minibatch pulls: no deadlock, no
     duplicate-free starvation, clean shutdown."""
     from tests.test_end_to_end import write_synthetic_dataset, ANNO_CLASSES
-    from annonet_tpu.data.dataset import find_image_files
+    from annonet_jax.data.dataset import find_image_files
 
     write_synthetic_dataset(tmp_path, n_images=6, size=40)
     files = find_image_files(str(tmp_path), True, verbose=False)

@@ -5,10 +5,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from annonet_tpu.classes import IGNORE_LABEL
-from annonet_tpu.models import SegNetConfig, apply_runtime
-from annonet_tpu.ops.loss import weighted_pixel_cross_entropy
-from annonet_tpu.train import (
+from annonet_jax.classes import IGNORE_LABEL
+from annonet_jax.models import SegNetConfig, apply_runtime
+from annonet_jax.ops.loss import weighted_pixel_cross_entropy
+from annonet_jax.train import (
     Trainer,
     TrainerConfig,
     count_steps_without_decrease,
@@ -165,7 +165,7 @@ def test_sync_file_config_mismatch_raises(tmp_path):
 def test_bn_momentum_for_step_schedule():
     """dlib bn_ semantics: update factor 1/min(t, W) — cumulative average
     until the window fills, then an EMA with momentum 1 - 1/W."""
-    from annonet_tpu.train.trainer import bn_momentum_for_step
+    from annonet_jax.train.trainer import bn_momentum_for_step
 
     W = 5
     assert bn_momentum_for_step(0, W) == 0.0  # first update: full replace
@@ -183,12 +183,12 @@ def test_bn_running_stats_are_true_windowed_average():
     must be identical."""
     import jax
 
-    from annonet_tpu.models.segnet import (
+    from annonet_jax.models.segnet import (
         apply_train,
         fold_batchnorm,
         init_state,
     )
-    from annonet_tpu.train.trainer import bn_momentum_for_step
+    from annonet_jax.train.trainer import bn_momentum_for_step
 
     cfg = SegNetConfig(
         class_count=2, level_count=1, base_width=4, compute_dtype="float32"
@@ -270,9 +270,9 @@ def test_train_step_lowers_without_gathers():
     import re
 
     import jax
-    from annonet_tpu.data.crop import CropOptions
-    from annonet_tpu.models.segnet import init_state
-    from annonet_tpu.train.trainer import make_fused_train_step
+    from annonet_jax.data.crop import CropOptions
+    from annonet_jax.models.segnet import init_state
+    from annonet_jax.train.trainer import make_fused_train_step
 
     cfg = SegNetConfig(class_count=3, level_count=2, base_width=8)
     co = CropOptions(
@@ -304,9 +304,9 @@ def test_verbose_progress_lines_with_batched_flush(capsys):
     print exactly once per 100 RECORDED losses (keyed on the recorded
     count, not step_count — a batched flush records several losses under
     one step_count)."""
-    from annonet_tpu.models.segnet import SegNetConfig
-    from annonet_tpu.data.crop import CropOptions
-    from annonet_tpu.train import Trainer, TrainerConfig
+    from annonet_jax.models.segnet import SegNetConfig
+    from annonet_jax.data.crop import CropOptions
+    from annonet_jax.train import Trainer, TrainerConfig
 
     mc = SegNetConfig(
         class_count=2, level_count=0, base_width=4, compute_dtype="float32"

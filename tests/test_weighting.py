@@ -11,8 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from annonet_tpu.classes import IGNORE_LABEL
-from annonet_tpu.ops import batched_label_weights, set_weights
+from annonet_jax.classes import IGNORE_LABEL
+from annonet_jax.ops import batched_label_weights, set_weights
 
 
 @pytest.fixture
